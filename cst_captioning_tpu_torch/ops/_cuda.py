@@ -1,0 +1,153 @@
+"""Build and load the hand-written CUDA kernels under ``csrc/``.
+
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a
+shared library with a plain C interface in ``build/`` inside the package
+and loaded with ``ctypes``.  The library's file name carries a hash of its
+sources and flags, so an edited source is rebuilt at its first use and a
+stale library is never loaded.  ``build()`` compiles several sources at
+once, one ``nvcc`` process each, all started together.
+
+Nothing here runs at import: the CPU tests import every module, on
+hosts that may have no ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Callable, Dict, Iterable, Optional
+
+import torch
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "build"
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+#: C signature of every kernel library's entry point (pointers, then ints,
+#: then the stream); each returns the CUDA error code of its launches.
+SIGNATURES = {
+    "attention": ("additive_attention_forward",
+                  [_P] * 6 + [_I] * 4 + [_P]),
+    "decode_cell": ("decode_cell_forward",
+                    [_P] * 12 + [_I] * 5 + [_P]),
+}
+
+_lock = threading.Lock()
+_loaded: Dict[str, Callable[..., int]] = {}
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if cand and (Path(cand) / "bin" / "nvcc").exists():
+            return str(Path(cand) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: set CUDA_HOME or put the CUDA "
+                           "toolkit's bin/ on PATH")
+    return found
+
+
+def library_path(name: str) -> Path:
+    """``build/lib<name>-<hash>.so``: hash of the sources and flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+
+
+def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
+    """Compile the named kernel libraries (default: all) that are not
+    built yet, in parallel.  Returns ``{name: {"seconds", "ptxas",
+    "cached"}}``; raises with nvcc's output if any compile fails."""
+    names = list(SIGNATURES if names is None else names)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out: Dict[str, dict] = {}
+    procs = {}
+    nvcc = None
+    for name in names:
+        dest = library_path(name)
+        if dest.exists():
+            out[name] = {"seconds": 0.0, "ptxas": "", "cached": True}
+            continue
+        nvcc = nvcc or _nvcc()
+        tmp = dest.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, dest, time.perf_counter())
+    failed = []
+    for name, (proc, tmp, dest, t0) in procs.items():
+        log, _ = proc.communicate()
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failed.append(f"--- nvcc {name}.cu (rc {proc.returncode}) ---\n"
+                          f"{log}")
+            continue
+        os.replace(tmp, dest)
+        ptxas = "\n".join(ln for ln in log.splitlines()
+                          if "registers" in ln or "spill" in ln)
+        out[name] = {"seconds": seconds, "ptxas": ptxas, "cached": False}
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return out
+
+
+def load(name: str):
+    """The loaded entry point of kernel library ``name`` (built on first
+    use), with its ctypes signature declared."""
+    with _lock:
+        fn = _loaded.get(name)
+        if fn is None:
+            path = library_path(name)
+            if not path.exists():
+                build([name])
+            fn_name, argtypes = SIGNATURES[name]
+            fn = getattr(ctypes.CDLL(str(path)), fn_name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            _loaded[name] = fn
+    return fn
+
+
+def on_cuda(what: str, tensors: Dict[str, "torch.Tensor"]) -> bool:
+    """Route a kernel wrapper's call: False when every input lies on the
+    CPU (the wrapper then takes its plain version), True when every input
+    is a contiguous float32 tensor on one CUDA device (the wrapper
+    launches its kernel).  Anything else raises: a dtype other than
+    float32, mixed devices, a non-contiguous CUDA tensor."""
+    devices = {t.device for t in tensors.values()}
+    for key, t in tensors.items():
+        if t.dtype != torch.float32:
+            raise TypeError(f"{what}: {key} is {t.dtype}; this kernel "
+                            "takes float32 only")
+    if len(devices) != 1:
+        raise ValueError(f"{what}: inputs on several devices {devices}")
+    dev = devices.pop()
+    if dev.type == "cpu":
+        return False
+    if dev.type != "cuda":
+        raise ValueError(f"{what}: no kernel for device {dev}")
+    for key, t in tensors.items():
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {key} must be contiguous")
+    return True
+
+
+def check(rc: int, what: str) -> None:
+    """Raise when a launch returned a CUDA error code."""
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA error {rc} at launch")

@@ -1,0 +1,138 @@
+"""The port stands alone: no module of ``cst_captioning_tpu_torch`` and
+not ``chip_smoke.py`` imports JAX, Flax, Optax, Orbax or the reference
+package; and no entry point runs on the CPU unless the caller asks for
+it.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import cst_captioning_tpu_torch as port
+from cst_captioning_tpu_torch import serve
+from cst_captioning_tpu_torch.models import CaptionModel
+from cst_captioning_tpu_torch.weights import model_from_flax
+
+REPO = Path(__file__).resolve().parent.parent
+PKG = REPO / "cst_captioning_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "cst_captioning_tpu")
+
+
+def _sources():
+    return sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def _imported_modules(path: Path):
+    """Absolute names of every module ``path`` imports (relative imports
+    resolved against its package)."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    rel = path.relative_to(REPO).with_suffix("")
+    package = list(rel.parts[:-1])
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom):
+            if node.level:
+                base = package[:len(package) - node.level + 1]
+                assert len(base) >= 1 and base[0] == PKG.name, (
+                    f"{path}: relative import leaves the package")
+                yield ".".join(base + ([node.module] if node.module else []))
+            else:
+                yield node.module
+
+
+def test_sources_found():
+    names = {p.name for p in _sources()}
+    assert {"chip_smoke.py", "engine.py", "decode_cell_kernel.py",
+            "attention_kernel.py", "serve.py"} <= names
+
+
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: str(
+    p.relative_to(REPO)))
+def test_no_reference_or_jax_imports(path):
+    for mod in _imported_modules(path):
+        top = mod.split(".")[0]
+        assert top not in FORBIDDEN, f"{path} imports {mod}"
+
+
+def test_fresh_import_loads_no_jax():
+    """Importing every module of the port in a fresh interpreter leaves
+    JAX and the reference package out of ``sys.modules``."""
+    mods = sorted(
+        ".".join(p.relative_to(REPO).with_suffix("").parts)
+        .removesuffix(".__init__") for p in PKG.rglob("*.py"))
+    code = ("import sys\n" + "".join(f"import {m}\n" for m in mods)
+            + "bad = [m for m in sys.modules if m.split('.')[0] in "
+            + repr(FORBIDDEN) + "]\nprint(bad)\nassert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_tf32_is_off():
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
+
+
+@pytest.fixture
+def no_gpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_default_device_raises_without_gpu(no_gpu):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        port.default_device()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        port.default_device("cuda")
+    assert port.default_device("cpu") == torch.device("cpu")
+
+
+def test_model_from_flax_raises_without_gpu_unless_cpu(no_gpu):
+    model = CaptionModel(10, [4], embed_size=8, hidden_size=8, attn_size=8)
+    params = {
+        "encoder": {"embed_0": {"kernel": np.zeros((4, 8), np.float32),
+                                "bias": np.zeros(8, np.float32)},
+                    "fuse": {"kernel": np.zeros((8, 8), np.float32),
+                             "bias": np.zeros(8, np.float32)}},
+        "memory_proj": {"kernel": np.zeros((8, 8), np.float32)},
+        "cell": {"embed": {"embedding": np.zeros((10, 8), np.float32)},
+                 "attn": {"query_proj": {"kernel": np.zeros((8, 8),
+                                                            np.float32)},
+                          "score_v": np.zeros(8, np.float32)},
+                 "lstm0": {
+                     **{f"i{g}": {"kernel": np.zeros((16, 8), np.float32)}
+                        for g in "ifgo"},
+                     **{f"h{g}": {"kernel": np.zeros((8, 8), np.float32),
+                                  "bias": np.zeros(8, np.float32)}
+                        for g in "ifgo"}}},
+        "state_init_0": {"kernel": np.zeros((8, 16), np.float32),
+                         "bias": np.zeros(16, np.float32)},
+        "logit": {"kernel": np.zeros((8, 10), np.float32),
+                  "bias": np.zeros(10, np.float32)},
+    }
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        model_from_flax(params)
+    cpu = model_from_flax(params, device="cpu")
+    assert cpu.device == torch.device("cpu")
+    assert set(cpu.state_dict()) == set(model.state_dict())
+
+
+def test_serve_cli_raises_without_gpu_unless_cpu(no_gpu):
+    argv = ["--serve_demo", "1", "--rnn_size", "8",
+            "--input_encoding_size", "8", "--att_size", "8",
+            "--vocab_size", "10", "--feat_shapes", "2x4"]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.build_backend(serve.parse_args(argv))
+    model, vocab, shapes, feats_for = serve.build_backend(
+        serve.parse_args(argv + ["--device", "cpu"]))
+    assert model.device == torch.device("cpu") and shapes == [(2, 4)]
+    assert len(vocab) == 9 and feats_for("v3")[0].shape == (2, 4)
+    assert feats_for("v99") is None and feats_for("x") is None
