@@ -10,8 +10,14 @@ Phases, each printed as it runs; any failure exits non-zero:
    one ``nvcc`` per source, all started together;
 3. each kernel against its plain PyTorch version on seeded inputs at the
    serving shapes (B in 1, 8, 40; T=29, A=H=E=512), max-abs error within
-   1e-5, and times (device time from ``torch.profiler``; the CUDA-event
-   time of back-to-back calls beside it) next to each kernel's bound;
+   1e-5, and times next to each kernel's bound: device time from
+   ``torch.profiler`` (the kernels' summed durations, and the busy time
+   and overlap of their intervals in the trace), ``graph_ms`` (CUDA events
+   around a CUDA-graph replay of back-to-back calls: no host gaps),
+   ``cold_ms`` (the same with L2 flushed before every call, the flush's
+   own time taken off), ``call_ms`` (CUDA events around back-to-back
+   wrapper calls, host gaps included) and the wrapper's host microseconds
+   per call;
 4. greedy serving at full MSR-VTT width through the port's entry points
    (``serve.build_backend`` -> ``ServingEngine`` -> ``CaptionServer``):
    16 requests, decode kernel ``fused`` (K2); every request completes
@@ -22,8 +28,8 @@ Phases, each printed as it runs; any failure exits non-zero:
    phase 4 printed.
 
 Each serving phase sets every kernel's launch count to 0 just before it
-and reads the counts just after; a kernel of the path that was not
-launched fails the run.  The line before the last is a JSON object with
+and reads the counts just after; a kernel of the path launched other
+than its count per decode step (K2 twice, K1 once) fails the run.  The line before the last is a JSON object with
 one entry per kernel; the last line is ``{"ok": true, "device": ...}``.
 Without a CUDA device, or run outside a checkout of the repository, the
 script exits non-zero and prints no result.
@@ -45,6 +51,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 TOL = 1e-5
+# Written before every call of a cold-L2 timing: over twice the 50 MB L2.
+FLUSH_BYTES = 128 << 20
 
 # Full MSR-VTT width served by the port: data/bench.py's default vocab
 # and feature shapes (28 x 2048 + 1 x 4096), hidden/embed/attention 512.
@@ -94,13 +102,29 @@ def cuda_ms(fn, iters: int = 200, warmup: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+def busy_and_overlap(spans):
+    """(busy, overlap) of device intervals [(start, end)]: the time some
+    interval covers (each instant once), and the time covered by two at
+    once (what the kernels' summed durations count twice)."""
+    busy = overlap = 0.0
+    end = float("-inf")
+    for s, e in sorted(spans):
+        if s < end:
+            overlap += min(e, end) - s
+        busy += max(0.0, e - max(s, end))
+        end = max(end, e)
+    return busy, overlap
+
+
 def device_profile(fn, iters: int = 50):
-    """Device time per ``fn()`` from ``torch.profiler``: the sum of the
-    CUDA kernels' time over ``iters`` calls, divided by ``iters`` (host
-    overhead between launches excluded).  -> (ms per call, wall ms per
-    call of the same profiled calls (host clock, profiler overhead
-    included), top kernels as [(name, ms per call, launches per call)]).
-    Fails the run when the profiler reports no device time."""
+    """Device time per ``fn()`` from ``torch.profiler`` over ``iters``
+    calls (host overhead between launches excluded): ``ms`` is the sum of
+    the device activities' durations, ``busy_ms`` the time the trace shows
+    the device busy (overlapping intervals counted once) and
+    ``overlap_ms`` the time two ran at once; ``wall_ms`` is the host clock
+    of the same profiled calls (profiler overhead included); ``top`` the
+    top kernels as [(name, ms per call, launches per call)].  Fails the
+    run when the profiler reports no device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -118,18 +142,100 @@ def device_profile(fn, iters: int = 50):
     total_us = sum(e.self_device_time_total for e in kernels)
     if total_us <= 0:
         fail("torch.profiler reported no device time")
+    busy_us, overlap_us = busy_and_overlap(
+        (e.time_range.start, e.time_range.end) for e in prof.events()
+        if e.device_type == DeviceType.CUDA)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
-    return total_us / iters / 1e3, wall_ms, [
-        (e.key[:60], e.self_device_time_total / iters / 1e3,
-         e.count / iters) for e in top]
+    return {"ms": total_us / iters / 1e3,
+            "busy_ms": busy_us / iters / 1e3,
+            "overlap_ms": overlap_us / iters / 1e3, "wall_ms": wall_ms,
+            "top": [(e.key[:60], e.self_device_time_total / iters / 1e3,
+                     e.count / iters) for e in top]}
 
 
-def timed(fn) -> dict:
-    """``ms``: profiler kernel time per call (device time only);
-    ``call_ms``: CUDA-event time per call back to back (what the stream
-    sees, host launch gaps included)."""
-    dev, _, _ = device_profile(fn)
-    return {"ms": dev, "call_ms": cuda_ms(fn)}
+def capture(fn, n: int):
+    """A CUDA graph of ``n`` back-to-back ``fn()`` calls, replayed once."""
+    import torch
+
+    for _ in range(3):      # allocator, library handles, kernel attributes
+        fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(n):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    return g
+
+
+def graph_ms(fn, n: int = 20, reps: int = 10) -> float:
+    """Device time per ``fn()`` free of host gaps: CUDA events around
+    ``reps`` replays of one CUDA graph of ``n`` back-to-back calls."""
+    import torch
+
+    g = capture(fn, n)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        g.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (n * reps)
+
+
+def graph_trace(fn, n: int = 20) -> dict:
+    """The profiler's trace of replays of a graph of ``n`` calls, per
+    call: ``busy_ms`` and ``overlap_ms`` (where the two launches of K2
+    overlap, the trace shows it here)."""
+    g = capture(fn, n)
+    prof = device_profile(g.replay, iters=5)
+    return {"graph_busy_ms": prof["busy_ms"] / n,
+            "graph_overlap_ms": prof["overlap_ms"] / n}
+
+
+def cold_ms(fn, flush) -> float:
+    """``graph_ms`` with L2 flushed before every call (``flush`` is
+    written), less the graph time of the flushes alone."""
+
+    def flush_then_call():
+        flush.fill_(1.0)
+        fn()
+
+    return (graph_ms(flush_then_call, n=10, reps=5)
+            - graph_ms(lambda: flush.fill_(1.0), n=10, reps=5))
+
+
+def host_us(fn, n: int = 200) -> float:
+    """Host microseconds per ``fn()`` (the wrapper's checks, allocations
+    and launches), the device left to run behind."""
+    import torch
+
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return seconds / n * 1e6
+
+
+def timed(fn, flush, trace_graph: bool = False) -> dict:
+    """Every time of ``fn`` that the kernels line carries (see the module
+    docstring): ``ms``, ``busy_ms``, ``overlap_ms`` (profiler),
+    ``graph_ms``, ``cold_ms``, ``call_ms``, ``host_us``; with
+    ``trace_graph`` also ``graph_busy_ms`` and ``graph_overlap_ms``."""
+    prof = device_profile(fn)
+    out = {"ms": prof["ms"], "busy_ms": prof["busy_ms"],
+           "overlap_ms": prof["overlap_ms"], "graph_ms": graph_ms(fn),
+           "cold_ms": cold_ms(fn, flush), "call_ms": cuda_ms(fn),
+           "host_us": host_us(fn)}
+    if trace_graph:
+        out.update(graph_trace(fn))
+    return out
 
 
 def bound_ms(n_bytes: float, n_ops: float):
@@ -150,12 +256,29 @@ def attention_inputs(b: int, gen):
 
 def kernel_checks():
     """Phase 3: K1 and K2 against their plain versions at B in 1, 8, 40.
-    -> {kernel: {batch: measurement dict}}."""
+    -> {kernel: {batch: measurement dict}}.  A kernel's ``ms`` (and its
+    plain version's and library call's) is the profiler's device time for
+    K1, one launch; for K2, whose gate launch starts under its attention
+    launch (programmatic dependent launch), the profiler would count the
+    overlap twice, so its ``ms`` is ``graph_ms``."""
+    import ctypes
+
     import torch
 
+    from cst_captioning_tpu_torch.ops import _cuda
     from cst_captioning_tpu_torch.ops import attention_kernel as k1
     from cst_captioning_tpu_torch.ops import decode_cell_kernel as k2
 
+    clusters = ctypes.c_int(0)
+    rc = _cuda.load("decode_cell", "decode_cell_gate_max_clusters")(
+        E, H, ctypes.byref(clusters))
+    _cuda.check(rc, "decode_cell_gate_max_clusters")
+    tiles = k2.gate_geometry(8, E, H)["column_tiles"]
+    print(f"K2 gate stage: the card holds {clusters.value} clusters of "
+          f"{k2.GATE_CLUSTER} blocks at once; the serving width has "
+          f"{tiles} (one wave: {clusters.value >= tiles})")
+
+    flush = torch.empty(FLUSH_BYTES // 4, device="cuda")
     gen = torch.Generator().manual_seed(1234)
     res = {"K1": {}, "K2": {}}
     for b in (1, 8, 40):
@@ -169,12 +292,14 @@ def kernel_checks():
                        + b * H + b * T_MEM)
         n_ops = b * (4 * T_MEM * A + 5 * T_MEM + 2 * T_MEM * H)
         bound, by = bound_ms(n_bytes, n_ops)
-        k, p = (timed(lambda: k1.fused_additive_attention(q, pm, mem, v)),
-                timed(lambda: k1.additive_attention_plain(q, pm, mem, v)))
+        k, p = (timed(lambda: k1.fused_additive_attention(q, pm, mem, v),
+                      flush),
+                timed(lambda: k1.additive_attention_plain(q, pm, mem, v),
+                      flush))
         res["K1"][b] = {
-            "max_abs_err": err, **k, "plain_ms": p["ms"],
-            "plain_call_ms": p["call_ms"], "bound_ms": bound,
-            "bound_by": by, "library_ms": None}
+            "max_abs_err": err, "ms": k["ms"], "ms_is": "profiler",
+            "plain_ms": p["ms"], "bound_ms": bound, "bound_by": by,
+            "library_ms": None, "kernel": k, "plain": p}
 
         x = torch.randn(b, E, generator=gen).cuda()
         c = torch.randn(b, H, generator=gen).cuda()
@@ -194,23 +319,29 @@ def kernel_checks():
                  + 2 * b * (E + 2 * H) * 4 * H + 10 * b * H)
         bound, by = bound_ms(n_bytes, n_ops)
         xin = torch.cat([x, torch.randn(b, H, device="cuda"), h], dim=-1)
-        k, p, lib = (timed(lambda: k2.fused_decode_cell(*args)),
-                     timed(lambda: k2.decode_cell_plain(*args)),
+        k, p, lib = (timed(lambda: k2.fused_decode_cell(*args), flush,
+                           trace_graph=True),
+                     timed(lambda: k2.decode_cell_plain(*args), flush),
                      # The gate product alone as one library call
                      # (a yardstick; the port never calls it).
-                     timed(lambda: torch.addmm(bias, xin, wg)))
+                     timed(lambda: torch.addmm(bias, xin, wg), flush))
         res["K2"][b] = {
-            "max_abs_err": err, **k, "plain_ms": p["ms"],
-            "plain_call_ms": p["call_ms"], "bound_ms": bound,
-            "bound_by": by, "library_ms": lib["ms"],
-            "library_call": "torch.addmm (gate product only)"}
+            "max_abs_err": err, "ms": k["graph_ms"], "ms_is": "graph_ms",
+            "plain_ms": p["graph_ms"], "bound_ms": bound, "bound_by": by,
+            "library_ms": lib["graph_ms"],
+            "library_call": "torch.addmm (gate product only)",
+            "kernel": k, "plain": p, "library": lib}
         for name in ("K1", "K2"):
             m = res[name][b]
             print(f"kernel {name} B={b}: max_abs_err={m['max_abs_err']:.3e} "
-                  f"ms={m['ms']:.5f} (call {m['call_ms']:.5f}) "
-                  f"plain_ms={m['plain_ms']:.5f} (call "
-                  f"{m['plain_call_ms']:.5f}) bound_ms={m['bound_ms']:.5f} "
-                  f"({m['bound_by']}) library_ms={m['library_ms']}")
+                  f"ms={m['ms']:.6f} ({m['ms_is']}) "
+                  f"plain_ms={m['plain_ms']:.6f} "
+                  f"bound_ms={m['bound_ms']:.6f} ({m['bound_by']}) "
+                  f"library_ms={m['library_ms']}")
+            for part in ("kernel", "plain", "library"):
+                if part in m:
+                    print(f"kernel {name} B={b} {part}: " + ", ".join(
+                        f"{key}={val:.6f}" for key, val in m[part].items()))
             if not m["max_abs_err"] <= TOL:
                 fail(f"{name} at B={b} disagrees with its plain version: "
                      f"{m['max_abs_err']:.3e} > {TOL}")
@@ -295,11 +426,14 @@ def serve_phase(name: str, extra_args, n_requests: int):
     # Where the device time goes: the same requests on a fresh engine
     # under the profiler; device time and wall time are both of this
     # profiled replay (the counts above are from the unprofiled run).
-    dev_ms, wall_ms, top = device_profile(replay, iters=1)
-    print(f"{name}: profiled replay: device kernel time {dev_ms:.3f} ms of "
-          f"{wall_ms:.3f} ms wall = busy share {dev_ms / wall_ms:.3f}; top "
-          "kernels (name, ms, launches): "
-          + "; ".join(f"{k} {ms:.3f} {n:.0f}" for k, ms, n in top))
+    prof = device_profile(replay, iters=1)
+    print(f"{name}: profiled replay: device time {prof['ms']:.3f} ms "
+          f"(summed durations), busy {prof['busy_ms']:.3f} ms (trace "
+          f"intervals, overlap {prof['overlap_ms']:.3f} ms counted once) of "
+          f"{prof['wall_ms']:.3f} ms wall = busy share "
+          f"{prof['busy_ms'] / prof['wall_ms']:.3f}; top kernels (name, ms, "
+          "launches): " + "; ".join(f"{k} {ms:.3f} {n:.0f}"
+                                    for k, ms, n in prof["top"]))
     return model, vocab, feats_for, captions, stats, launches, seconds
 
 
@@ -321,6 +455,15 @@ def offline_captions(model, vocab, feats_for, n: int, beam_size: int):
                            decode_chunk=CHUNK)[0]
     return {f"v{i}": cap for i, cap in
             enumerate(vocab.decode_batch(toks.cpu().numpy()))}
+
+
+def check_launches(phase: str, kernel: str, launches: int, steps: int,
+                   per_step: int) -> None:
+    """Fail unless the phase ran decode steps and launched ``kernel``
+    exactly ``per_step`` times in each."""
+    if steps == 0 or launches != per_step * steps:
+        fail(f"{phase}: {kernel} launched {launches} times in {steps} "
+             f"decode steps ({per_step} a step expected)")
 
 
 def check_against_offline(name, served, offline):
@@ -368,8 +511,8 @@ def main() -> int:
     model, vocab, feats_for, greedy_caps, g_stats, g_launch, _ = \
         serve_phase("greedy-fused", ["--decode_kernel", "fused",
                                      "--beam_size", "1"], 16)
-    if g_launch["fused_decode_cell"] == 0:
-        fail("greedy serving did not launch the K2 decode-cell kernel")
+    check_launches("greedy-fused", "K2", g_launch["fused_decode_cell"],
+                   g_stats["decode_steps"], 2)
     check_against_offline("greedy-fused", greedy_caps,
                           offline_captions(model, vocab, feats_for, 16, 1))
 
@@ -377,8 +520,8 @@ def main() -> int:
     model, vocab, feats_for, beam_caps, b_stats, b_launch, _ = \
         serve_phase("beam5-fused", ["--decode_kernel", "fused",
                                     "--beam_size", "5"], 8)
-    if b_launch["fused_decode_cell"] == 0:
-        fail("beam serving did not launch the K2 decode-cell kernel")
+    check_launches("beam5-fused", "K2", b_launch["fused_decode_cell"],
+                   b_stats["decode_steps"], 2)
     check_against_offline("beam5-fused", beam_caps,
                           offline_captions(model, vocab, feats_for, 8, 5))
 
@@ -387,8 +530,9 @@ def main() -> int:
         serve_phase("greedy-reference-k1",
                     ["--decode_kernel", "reference", "--pallas_attention",
                      "1", "--beam_size", "1"], 16)
-    if r_launch["fused_additive_attention"] == 0:
-        fail("reference-cell serving did not launch the K1 kernel")
+    check_launches("greedy-reference-k1", "K1",
+                   r_launch["fused_additive_attention"],
+                   r_stats["decode_steps"], 1)
     check_against_offline("greedy-reference-k1", ref_caps,
                           offline_captions(model, vocab, feats_for, 16, 1))
     agree = sum(ref_caps[v] == greedy_caps[v] for v in greedy_caps)
@@ -417,8 +561,11 @@ def main() -> int:
                                for b in measured[key]),
             "ms": m["ms"], "plain_ms": m["plain_ms"],
             "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
-            "library_ms": m["library_ms"], "batch": 8,
-            "call_ms": m["call_ms"],
+            "library_ms": m["library_ms"], "batch": 8, "ms_is": m["ms_is"],
+            "graph_ms": m["kernel"]["graph_ms"],
+            "cold_ms": m["kernel"]["cold_ms"],
+            "call_ms": m["kernel"]["call_ms"],
+            "host_us": m["kernel"]["host_us"],
             "by_batch": {str(b): measured[key][b] for b in measured[key]}})
     print(json.dumps({"kernels": kernels}))
     print(card)

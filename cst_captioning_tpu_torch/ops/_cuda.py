@@ -21,7 +21,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Callable, Dict, Iterable, Optional
+from typing import Callable, Dict, Iterable, Optional, Tuple
 
 import torch
 
@@ -35,17 +35,20 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
-#: C signature of every kernel library's entry point (pointers, then ints,
-#: then the stream); each returns the CUDA error code of its launches.
+#: C functions of every kernel library: ``{library: {function: argtypes}}``;
+#: the first is the launcher (pointers, then ints, then the stream).  Each
+#: returns a CUDA error code.
 SIGNATURES = {
-    "attention": ("additive_attention_forward",
-                  [_P] * 6 + [_I] * 4 + [_P]),
-    "decode_cell": ("decode_cell_forward",
-                    [_P] * 12 + [_I] * 5 + [_P]),
+    "attention": {
+        "additive_attention_forward": [_P] * 6 + [_I] * 5 + [_P]},
+    "decode_cell": {
+        "decode_cell_forward": [_P] * 12 + [_I] * 7 + [_P],
+        "decode_cell_gate_max_clusters": [_I, _I,
+                                          ctypes.POINTER(ctypes.c_int)]},
 }
 
 _lock = threading.Lock()
-_loaded: Dict[str, Callable[..., int]] = {}
+_loaded: Dict[Tuple[str, str], Callable[..., int]] = {}
 
 
 def _nvcc() -> str:
@@ -106,20 +109,21 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
     return out
 
 
-def load(name: str):
-    """The loaded entry point of kernel library ``name`` (built on first
-    use), with its ctypes signature declared."""
+def load(name: str, function: Optional[str] = None):
+    """The loaded C function ``function`` (default: the launcher) of kernel
+    library ``name`` (built on first use), with its ctypes signature
+    declared."""
+    function = function or next(iter(SIGNATURES[name]))
     with _lock:
-        fn = _loaded.get(name)
+        fn = _loaded.get((name, function))
         if fn is None:
             path = library_path(name)
             if not path.exists():
                 build([name])
-            fn_name, argtypes = SIGNATURES[name]
-            fn = getattr(ctypes.CDLL(str(path)), fn_name)
-            fn.argtypes = argtypes
+            fn = getattr(ctypes.CDLL(str(path)), function)
+            fn.argtypes = SIGNATURES[name][function]
             fn.restype = ctypes.c_int
-            _loaded[name] = fn
+            _loaded[(name, function)] = fn
     return fn
 
 
@@ -145,6 +149,16 @@ def on_cuda(what: str, tensors: Dict[str, "torch.Tensor"]) -> bool:
         if not t.is_contiguous():
             raise ValueError(f"{what}: {key} must be contiguous")
     return True
+
+
+def check_aligned(what: str, tensors: Dict[str, "torch.Tensor"]) -> None:
+    """The kernels copy their operands 16 bytes at a time: raise
+    ``ValueError`` for a tensor that does not start on a 16-byte
+    boundary."""
+    for key, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what}: {key} must start on a 16-byte "
+                             "boundary")
 
 
 def check(rc: int, what: str) -> None:

@@ -3,17 +3,58 @@
 
 ``fused_additive_attention`` launches the CUDA kernel ``csrc/attention.cu``
 for CUDA tensors and takes ``additive_attention_plain`` for CPU tensors;
-nothing else.  Forward only: the backward (the reference's ``_bwd``)
-comes with the training slice.
+nothing else.  Forward only: the backward (the reference's ``_bwd``, plain
+XLA there) comes with the training slice as a plain autograd backward.
+
+``attention_geometry`` is the kernel's launch geometry (one cluster of
+``ATTN_CLUSTER`` blocks per row, each with its share of time steps and of
+H) in plain Python: the wrapper computes it before it touches CUDA and
+raises ``ValueError`` for a shape the kernel does not take.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import torch
 
 from . import _cuda
+
+#: Blocks per batch row (a thread-block cluster), as ``kAttnCluster``.
+ATTN_CLUSTER = 4
+#: Shared memory one block may use on an H100 (227 KB).
+SMEM_LIMIT = 232448
+
+
+@functools.lru_cache(maxsize=None)
+def attention_geometry(b: int, t: int, a: int, h: int) -> dict:
+    """Launch geometry of ``attention_kernel`` (``csrc/attention.cuh``)
+    for B rows of a (T, A) / (T, H) memory: ``cluster`` blocks per row,
+    ``blocks`` in all, ``time_steps`` (most a block scores), ``h_slice``
+    (context columns a block writes) and ``smem_bytes`` a block (q, v, its
+    proj_mem rows, its memory columns, the scores).
+    Raises ``ValueError`` for a shape the kernel does not take: the 16-byte
+    copies need A % 4 == 0 and H % (4 * cluster) == 0."""
+    if min(b, t, a, h) < 1 or b > 65535:
+        raise ValueError(f"attention kernel: takes 1 <= B <= 65535 (one "
+                         f"grid row each) and non-empty T, A, H; got B={b} "
+                         f"T={t} A={a} H={h}")
+    if a % 4 or h % (4 * ATTN_CLUSTER):
+        raise ValueError(
+            f"attention kernel: needs A % 4 == 0 and H % "
+            f"{4 * ATTN_CLUSTER} == 0 (16-byte copies of each block's "
+            f"share); got A={a}, H={h}")
+    time_steps = -(-t // ATTN_CLUSTER)
+    h_slice = h // ATTN_CLUSTER
+    smem = 4 * (2 * a + time_steps * a + t * h_slice + t)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"attention kernel: T={t}, A={a}, H={h} needs "
+                         f"{smem} bytes of shared memory a block, over the "
+                         f"{SMEM_LIMIT} an H100 block has")
+    return {"cluster": ATTN_CLUSTER, "blocks": ATTN_CLUSTER * b,
+            "time_steps": time_steps, "h_slice": h_slice,
+            "smem_bytes": smem}
 
 
 def additive_attention_plain(q: torch.Tensor, proj_mem: torch.Tensor,
@@ -49,11 +90,15 @@ def fused_additive_attention(q: torch.Tensor, proj_mem: torch.Tensor,
             f"{what}: shapes q {tuple(q.shape)}, proj_mem "
             f"{tuple(proj_mem.shape)}, memory {tuple(memory.shape)}, "
             f"score_v {tuple(score_v.shape)} do not agree")
+    geo = attention_geometry(b, t, a, h)
+    _cuda.check_aligned(what, {"q": q, "proj_mem": proj_mem,
+                               "memory": memory, "score_v": score_v})
     ctx = torch.empty((b, h), dtype=torch.float32, device=q.device)
     w = torch.empty((b, t), dtype=torch.float32, device=q.device)
     fn = _cuda.load("attention")
     rc = fn(q.data_ptr(), proj_mem.data_ptr(), memory.data_ptr(),
             score_v.data_ptr(), ctx.data_ptr(), w.data_ptr(), b, t, a, h,
+            geo["smem_bytes"],
             torch.cuda.current_stream(q.device).cuda_stream)
     _cuda.check(rc, what)
     fused_additive_attention.launches += 1

@@ -17,18 +17,72 @@ Gate weights are the reference's flax layout, ``(in, out)``: ``w`` is
 ``[W_i; W_h]`` of shape ``(E + 2H, 4H)`` (input-side rows for ``[x, ctx]``
 first, recurrent rows for ``h`` after), gate columns ``i | f | g | o``;
 ``bias`` (4H,) is the h-side bias.  ``models/decoder_lstm.py`` stores its
-weights in exactly this layout, so binding a step copies nothing.
+weights in exactly this layout, so binding a step copies nothing: the
+gate kernel reads ``w`` as it lies.
+
+``gate_geometry`` is the gate kernel's launch geometry (column tiles of
+``GATE_UNITS`` hidden units, each a cluster of ``GATE_CLUSTER`` blocks
+that split K, batch rows in groups of ``GATE_ROWS``) in plain Python: the
+wrapper computes it before it touches CUDA and raises ``ValueError`` for
+a shape the kernel does not take.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from . import _cuda
-from .attention_kernel import additive_attention_plain
+from .attention_kernel import (SMEM_LIMIT, additive_attention_plain,
+                               attention_geometry)
+
+#: The gate kernel's constants (``csrc/decode_cell.cu``): blocks a column
+#: tile (a thread-block cluster; one K slice each), hidden units a tile,
+#: rows of K a warp takes at a time, warps a block, batch rows a group,
+#: batch rows a pair exchange of block sums.
+GATE_CLUSTER = 2
+GATE_UNITS = 8
+GATE_SUB = 4
+GATE_WARPS = 8
+GATE_ROWS = 8
+GATE_CHUNK_ROWS = 64
+
+
+@functools.lru_cache(maxsize=None)
+def gate_geometry(b: int, e: int, h: int) -> dict:
+    """Launch geometry of ``gate_kernel`` for B rows, input width E and
+    hidden width H: ``cluster`` (blocks a tile, one K slice each),
+    ``column_tiles``, ``blocks``, ``k_rows`` (the K rows a block holds:
+    its share of each of the x, h and ctx segments), ``row_groups`` and
+    ``smem_bytes`` a block (the warps' partial sums, the weight slice, two
+    row groups' inputs, the block sums its peer sends it).  Raises
+    ``ValueError`` for a shape the kernel does not take: E and H must be
+    multiples of 8 (each block's share of a segment is whole 16-byte copies
+    and whole warp steps of ``GATE_SUB`` rows), and the slice must fit in a
+    block's shared memory."""
+    if min(b, e, h) < 1:
+        raise ValueError(f"gate kernel: empty shape B={b} E={e} H={h}")
+    step = GATE_CLUSTER * GATE_SUB
+    if e % step or h % step:
+        raise ValueError(f"gate kernel: E and H must be multiples of "
+                         f"{step}; got E={e}, H={h}")
+    k_rows = (e + 2 * h) // GATE_CLUSTER
+    cols = 4 * GATE_UNITS
+    # Partial sums, weights, two input buffers, and the peer's sums of
+    # this rank's units (GATE_CLUSTER x GATE_CHUNK_ROWS x cols / cluster).
+    smem = 4 * (GATE_WARPS * GATE_ROWS * cols + k_rows * cols
+                + 2 * GATE_ROWS * k_rows + GATE_CHUNK_ROWS * cols)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"gate kernel: E={e}, H={h} puts {k_rows} rows of "
+                         f"K in a block, {smem} bytes of shared memory, "
+                         f"over the {SMEM_LIMIT} an H100 block has")
+    tiles = h // GATE_UNITS
+    return {"cluster": GATE_CLUSTER, "column_tiles": tiles,
+            "blocks": GATE_CLUSTER * tiles, "k_rows": k_rows,
+            "row_groups": -(-b // GATE_ROWS), "smem_bytes": smem}
 
 
 def decode_cell_plain(x, c, h, q, proj_mem, memory, score_v, w, bias
@@ -53,7 +107,8 @@ def fused_decode_cell(x, c, h, q, proj_mem, memory, score_v, w, bias
     """-> (c' (B, H), h' (B, H)).  x (B, E), c/h (B, H), q (B, A),
     proj_mem (B, T, A), memory (B, T, H), score_v (A,), w (E + 2H, 4H),
     bias (4H,).  On CUDA tensors: the two launches of the K2 kernel
-    (attention; gate product with the state update), each counted in
+    (attention; gate product with the state update, started early by
+    programmatic dependent launch), each counted in
     ``fused_decode_cell.launches``; on CPU tensors: the plain version."""
     what = "fused_decode_cell"
     args = {"x": x, "c": c, "h": h, "q": q, "proj_mem": proj_mem,
@@ -71,10 +126,11 @@ def fused_decode_cell(x, c, h, q, proj_mem, memory, score_v, w, bias
         if tuple(args[key].shape) != shape:
             raise ValueError(f"{what}: {key} has shape "
                              f"{tuple(args[key].shape)}, expected {shape}")
-    if hid % 4 or w.data_ptr() % 16:
-        raise ValueError(f"{what}: the gate kernel reads 4 hidden units as "
-                         "one 16-byte load; needs H % 4 == 0 and a 16-byte "
-                         "aligned w")
+    attn = attention_geometry(b, t, a, hid)
+    gate = gate_geometry(b, e, hid)
+    _cuda.check_aligned(what, {"x": x, "h": h, "q": q,
+                               "proj_mem": proj_mem, "memory": memory,
+                               "score_v": score_v, "w": w})
     dev = x.device
     ctx = torch.empty((b, hid), dtype=torch.float32, device=dev)
     new_c = torch.empty((b, hid), dtype=torch.float32, device=dev)
@@ -83,8 +139,8 @@ def fused_decode_cell(x, c, h, q, proj_mem, memory, score_v, w, bias
     rc = fn(x.data_ptr(), c.data_ptr(), h.data_ptr(), q.data_ptr(),
             proj_mem.data_ptr(), memory.data_ptr(), score_v.data_ptr(),
             w.data_ptr(), bias.data_ptr(), ctx.data_ptr(), new_c.data_ptr(),
-            new_h.data_ptr(), b, t, e, a, hid,
-            torch.cuda.current_stream(dev).cuda_stream)
+            new_h.data_ptr(), b, t, e, a, hid, attn["smem_bytes"],
+            gate["smem_bytes"], torch.cuda.current_stream(dev).cuda_stream)
     _cuda.check(rc, what)
     fused_decode_cell.launches += 2     # attention; gates + update
     return new_c, new_h

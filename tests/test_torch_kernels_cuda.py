@@ -23,6 +23,7 @@ from cst_captioning_tpu_torch.weights import init_random_
 pytestmark = pytest.mark.cuda
 
 T, E, H, A = 29, 512, 512, 512        # the serving shapes (MSR-VTT width)
+SMALL = dict(t=5, e=32, h=32, a=32)   # the width of the served model below
 TOL = 1e-5
 
 
@@ -33,11 +34,26 @@ def cuda():
     return torch.device("cuda")
 
 
-def _attention_inputs(b, seed):
+def _attention_inputs(b, seed, t=T, a=A, h=H):
+    """(q, proj_mem, memory, score_v) on the CPU."""
     g = torch.Generator().manual_seed(seed)
-    return (torch.randn(b, A, generator=g), torch.randn(b, T, A, generator=g),
-            torch.randn(b, T, H, generator=g),
-            torch.randn(A, generator=g) / A ** 0.5)
+    return (torch.randn(b, a, generator=g), torch.randn(b, t, a, generator=g),
+            torch.randn(b, t, h, generator=g),
+            torch.randn(a, generator=g) / a ** 0.5)
+
+
+def _cell_inputs(b, seed, t=T, e=E, h=H, a=A):
+    """(x, c, h, q, proj_mem, memory, score_v, w, bias) on the CPU."""
+    g = torch.Generator().manual_seed(100 + seed)
+    q, pm, mem, v = _attention_inputs(b, seed, t, a, h)
+    return (torch.randn(b, e, generator=g), torch.randn(b, h, generator=g),
+            torch.tanh(torch.randn(b, h, generator=g)), q, pm, mem, v,
+            torch.randn(e + 2 * h, 4 * h, generator=g) / (e + h) ** 0.5,
+            0.1 * torch.randn(4 * h, generator=g))
+
+
+def _max_err(got, want):
+    return max((g - w).abs().max().item() for g, w in zip(got, want))
 
 
 @pytest.mark.parametrize("b", [1, 8, 40])
@@ -52,15 +68,10 @@ def test_attention_kernel_matches_plain(cuda, b):
     assert (w - ref_w).abs().max().item() <= TOL
 
 
-@pytest.mark.parametrize("b", [1, 8, 40])
+@pytest.mark.parametrize("b", [1, 3, 8, 40, 64, 100])
 def test_decode_cell_kernel_matches_plain(cuda, b):
-    g = torch.Generator().manual_seed(100 + b)
-    q, pm, mem, v = _attention_inputs(b, b)
-    args = [t.to(cuda) for t in (
-        torch.randn(b, E, generator=g), torch.randn(b, H, generator=g),
-        torch.tanh(torch.randn(b, H, generator=g)), q, pm, mem, v,
-        torch.randn(E + 2 * H, 4 * H, generator=g) / (E + H) ** 0.5,
-        0.1 * torch.randn(4 * H, generator=g))]
+    """B = 64 and 100 take several row groups of the gate kernel."""
+    args = [t.to(cuda) for t in _cell_inputs(b, b)]
     before = k2.fused_decode_cell.launches
     c, h = k2.fused_decode_cell(*args)
     torch.cuda.synchronize()
@@ -68,6 +79,43 @@ def test_decode_cell_kernel_matches_plain(cuda, b):
     ref_c, ref_h = k2.decode_cell_plain(*args)
     assert (c - ref_c).abs().max().item() <= TOL
     assert (h - ref_h).abs().max().item() <= TOL
+
+
+@pytest.mark.parametrize("t", [5, 6])
+def test_kernels_match_plain_at_the_test_width(cuda, t):
+    """E = H = A = 32: one gate cluster, one or two rows of K a warp."""
+    args = [a.to(cuda) for a in _cell_inputs(6, 7, **dict(SMALL, t=t))]
+    got = k2.fused_decode_cell(*args)
+    torch.cuda.synchronize()
+    assert _max_err(got, k2.decode_cell_plain(*args)) <= TOL
+    att = args[3:7]
+    got = k1.fused_additive_attention(*att)
+    torch.cuda.synchronize()
+    assert _max_err(got, k1.additive_attention_plain(*att)) <= TOL
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K2"])
+def test_kernels_are_batch_invariant_bitwise(cuda, kernel):
+    """A row's outputs have the same bits run in a batch of 40, run alone,
+    and run at another index of the batch."""
+    b = 40
+    args = [a.to(cuda) for a in _cell_inputs(b, 11)]
+    if kernel == "K1":      # (q, proj_mem, memory | score_v)
+        fn, args, per_row = k1.fused_additive_attention, args[3:7], 3
+    else:                   # (x, c, h, q, proj_mem, memory | v, w, bias)
+        fn, per_row = k2.fused_decode_cell, 6
+
+    def rows(idx):
+        return [a[idx].contiguous() if i < per_row else a
+                for i, a in enumerate(args)]
+
+    full = fn(*args)
+    perm = torch.roll(torch.arange(b, device=cuda), 17)
+    for out, moved in zip(full, fn(*rows(perm))):
+        assert torch.equal(out[perm], moved)
+    for r in (0, 13, 39):
+        for out, alone in zip(full, fn(*rows(slice(r, r + 1)))):
+            assert torch.equal(out[r:r + 1], alone)
 
 
 def test_cuda_wrappers_refuse_what_the_kernels_do_not_take(cuda):
@@ -79,6 +127,25 @@ def test_cuda_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         k1.fused_additive_attention(q.cpu(), pm, mem, v)
     with pytest.raises(TypeError, match="float32"):
         k1.fused_additive_attention(q.half(), pm, mem, v)
+    with pytest.raises(ValueError, match="16-byte"):
+        k1.fused_additive_attention(q, pm, mem, torch.empty(
+            A + 1, device=cuda)[1:])
+    args = [a.to(cuda) for a in _cell_inputs(2, 0, t=5, e=32, h=40, a=32)]
+    with pytest.raises(ValueError, match="H % 16 == 0"):
+        k2.fused_decode_cell(*args)
+
+
+def test_gate_clusters_fit_in_one_wave(cuda):
+    """The card holds every gate cluster of the serving width at once (the
+    weight stream's premise; a second wave would read its weights late)."""
+    import ctypes
+
+    from cst_captioning_tpu_torch.ops import _cuda
+
+    n = ctypes.c_int(0)
+    fn = _cuda.load("decode_cell", "decode_cell_gate_max_clusters")
+    assert fn(E, H, ctypes.byref(n)) == 0
+    assert n.value >= k2.gate_geometry(8, E, H)["column_tiles"]
 
 
 def test_served_greedy_captions_equal_offline_on_card(cuda):
