@@ -1,5 +1,5 @@
 """Vocabulary and sequence<->string conversion (copy of the reference's
-``data/vocab.py`` ``Vocab``).
+``data/vocab.py``: ``Vocab`` and ``build_vocab``).
 
 Token-id convention: id 0 is PAD, EOS and the decoder's BOS input at
 once; real words occupy ids 1..V, so embedding tables have V+1 rows.
@@ -7,7 +7,8 @@ once; real words occupy ids 1..V, so embedding tables have V+1 rows.
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, List, Mapping
+from collections import Counter
+from typing import Dict, Iterable, List, Mapping, Sequence
 
 import numpy as np
 
@@ -25,6 +26,7 @@ class Vocab:
             raise ValueError("id 0 is reserved for PAD/EOS")
         self.word_to_ix: Dict[str, int] = {w: i for i, w
                                            in self.ix_to_word.items()}
+        self.unk_ix = self.word_to_ix.get(UNK_TOKEN)
 
     def __len__(self) -> int:
         # number of real words; embedding tables need len(vocab)+1 rows
@@ -33,6 +35,22 @@ class Vocab:
     @property
     def size_with_pad(self) -> int:
         return len(self.ix_to_word) + 1
+
+    def encode(self, tokens: Sequence[str], max_len: int) -> np.ndarray:
+        """Tokens -> fixed-length id row, 0-padded (EOS implicit at the
+        first 0).  Unknown words map to ``<unk>``, or are dropped when the
+        vocabulary has none (a 0 would read as an early EOS)."""
+        out = np.zeros(max_len, dtype=np.int32)
+        j = 0
+        for w in tokens:
+            if j >= max_len:
+                break
+            ix = self.word_to_ix.get(w, self.unk_ix)
+            if ix is None:
+                continue
+            out[j] = ix
+            j += 1
+        return out
 
     def decode(self, ids: Iterable[int]) -> str:
         """Id sequence -> caption string, stopping at the first 0 (EOS)."""
@@ -54,3 +72,16 @@ class Vocab:
     @classmethod
     def from_json(cls, obj: Mapping[str, str]) -> "Vocab":
         return cls({int(k): v for k, v in obj.items()})
+
+
+def build_vocab(tokenized_captions: Iterable[Sequence[str]],
+                count_threshold: int = 1, add_unk: bool = True) -> Vocab:
+    """Frequency-thresholded vocabulary: sorted words seen at least
+    ``count_threshold`` times, then ``<unk>``; ids from 1."""
+    counts = Counter()
+    for toks in tokenized_captions:
+        counts.update(toks)
+    words = sorted(w for w, c in counts.items() if c >= count_threshold)
+    if add_unk and UNK_TOKEN not in words:
+        words.append(UNK_TOKEN)
+    return Vocab({i + 1: w for i, w in enumerate(words)})

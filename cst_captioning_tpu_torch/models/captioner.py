@@ -6,8 +6,11 @@ Surfaces, as in the reference:
 - ``init_carry(pooled)`` -> per-layer (c, h) from ``state_init_{l}``;
 - ``decode(carry, tokens (B, L), ...)`` -> (carry, logits (B, L, V));
   L == 1 is the autoregressive step the samplers drive;
-- ``forward(feats, labels)`` — teacher-forced logits (inference
-  semantics: the port has no dropout).
+- ``forward(feats, labels, seq_per_img, train, generator)`` —
+  teacher-forced logits.  ``train=True`` turns dropout on (``drop_prob``,
+  default 0.5 as the reference's ``--drop_prob``) at the reference's
+  sites: the encoder's ``pooled`` and ``memory`` and the cell's output
+  ``h``, with masks from the caller's ``torch.Generator``.
 
 ``decode_kernel`` selects the decode-step cell the samplers, beam search
 and the serving engine bind (``ops/sampling.make_decode_step``):
@@ -18,7 +21,7 @@ kernel does not cover raises here, at construction.
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
@@ -47,7 +50,8 @@ class CaptionModel(nn.Module):
                  num_layers: int = 1, attn_size: int = 512,
                  use_attention: bool = True,
                  use_kernel_attention: bool = False,
-                 decode_kernel: str = "reference"):
+                 decode_kernel: str = "reference",
+                 drop_prob: float = 0.5):
         super().__init__()
         if decode_kernel not in DECODE_KERNELS:
             raise ValueError(f"decode_kernel must be one of {DECODE_KERNELS}, "
@@ -60,17 +64,20 @@ class CaptionModel(nn.Module):
         self.attn_size = attn_size
         self.use_attention = use_attention
         self.decode_kernel = decode_kernel
+        self.drop_prob = drop_prob
         if decode_kernel == "fused":
             ok, reason = fused_decode_supported(self)
             if not ok:
                 raise ValueError(f"decode_kernel='fused' does not cover "
                                  f"this model: {reason}")
-        self.encoder = FeatureEncoder(self.feat_dims, hidden_size)
+        self.encoder = FeatureEncoder(self.feat_dims, hidden_size,
+                                      drop_prob=drop_prob)
         self.memory_proj = nn.Linear(hidden_size, attn_size, bias=False)
         self.cell = DecoderCell(vocab_size, embed_size, hidden_size,
                                 num_layers=num_layers, attn_size=attn_size,
                                 use_attention=use_attention,
-                                use_kernel_attention=use_kernel_attention)
+                                use_kernel_attention=use_kernel_attention,
+                                drop_prob=drop_prob)
         self.state_init = nn.ModuleList(
             nn.Linear(hidden_size, 2 * hidden_size)
             for _ in range(num_layers))
@@ -82,9 +89,11 @@ class CaptionModel(nn.Module):
     def device(self) -> torch.device:
         return self.logit.weight.device
 
-    def encode(self, feats: Sequence[torch.Tensor]):
+    def encode(self, feats: Sequence[torch.Tensor], train: bool = False,
+               generator: Optional[torch.Generator] = None):
         """-> (memory (B,T,H), proj_mem (B,T,A), pooled (B,H))."""
-        memory, pooled = self.encoder(feats)
+        memory, pooled = self.encoder(feats, train=train,
+                                      generator=generator)
         return memory, self.memory_proj(memory), pooled
 
     def init_carry(self, pooled: torch.Tensor) -> Carry:
@@ -98,23 +107,27 @@ class CaptionModel(nn.Module):
 
     def decode(self, carry: Carry, tokens: torch.Tensor,
                memory: torch.Tensor, proj_mem: torch.Tensor,
-               pooled: torch.Tensor):
+               pooled: torch.Tensor, train: bool = False,
+               generator: Optional[torch.Generator] = None):
         """tokens (B, L) -> (carry, logits (B, L, V))."""
         hs = []
         for t in range(tokens.shape[1]):
             carry, h = self.cell(carry, tokens[:, t], memory, proj_mem,
-                                 pooled)
+                                 pooled, train=train, generator=generator)
             hs.append(h)
         return carry, self.logit(torch.stack(hs, dim=1))
 
     def forward(self, feats: Sequence[torch.Tensor], labels: torch.Tensor,
-                seq_per_img: int = 1) -> torch.Tensor:
+                seq_per_img: int = 1, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Teacher-forced logits (B*seq_per_img, L, V)."""
-        memory, proj_mem, pooled = self.encode(feats)
+        memory, proj_mem, pooled = self.encode(feats, train=train,
+                                               generator=generator)
         memory = repeat_for_captions(memory, seq_per_img)
         proj_mem = repeat_for_captions(proj_mem, seq_per_img)
         pooled = repeat_for_captions(pooled, seq_per_img)
         carry = self.init_carry(pooled)
         _, logits = self.decode(carry, shift_right(labels), memory,
-                                proj_mem, pooled)
+                                proj_mem, pooled, train=train,
+                                generator=generator)
         return logits

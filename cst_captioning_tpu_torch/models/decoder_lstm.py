@@ -4,17 +4,19 @@
 One decode step: embed the token, attend over the encoder memory (or
 take the pooled feature when attention is off), run the LSTM stack.  The
 vocab head lives outside the cell, in ``CaptionModel``, as in the
-reference.  Dropout is identity at inference, so the cell has none.
+reference.  With ``train=True`` and ``drop_prob`` > 0, dropout applies
+to the top layer's output ``h`` (not to the carry), as in the reference.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
 
 from ..ops.attention import AdditiveAttention
+from .encoder import dropout
 
 Carry = Tuple[Tuple[torch.Tensor, torch.Tensor], ...]  # ((c, h) per layer)
 
@@ -52,9 +54,11 @@ class DecoderCell(nn.Module):
     def __init__(self, vocab_size: int, embed_size: int, hidden_size: int,
                  num_layers: int = 1, attn_size: int = 512,
                  use_attention: bool = True,
-                 use_kernel_attention: bool = False):
+                 use_kernel_attention: bool = False,
+                 drop_prob: float = 0.0):
         super().__init__()
         self.use_attention = use_attention
+        self.drop_prob = drop_prob
         self.embed = nn.Embedding(vocab_size, embed_size)
         self.attn = (AdditiveAttention(hidden_size, attn_size,
                                        use_kernel=use_kernel_attention)
@@ -66,7 +70,8 @@ class DecoderCell(nn.Module):
 
     def forward(self, carry: Carry, token: torch.Tensor,
                 memory: torch.Tensor, proj_mem: torch.Tensor,
-                pooled: torch.Tensor):
+                pooled: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None):
         x = self.embed(token)
         if self.attn is not None:
             context, _ = self.attn(carry[-1][1], memory, proj_mem)
@@ -77,4 +82,6 @@ class DecoderCell(nn.Module):
         for layer in self.lstm:
             layer_carry, inp = layer(carry[len(new_carry)], inp)
             new_carry.append(layer_carry)
+        if train and self.drop_prob > 0:
+            inp = dropout(inp, self.drop_prob, generator)
         return tuple(new_carry), inp

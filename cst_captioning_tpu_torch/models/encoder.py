@@ -6,28 +6,47 @@ per-timestep projections are concatenated along time into the attention
 memory (B, sum_m T_m, H), and the per-modality time means are
 concatenated and fused (Linear + tanh) into ``pooled`` (B, H), which
 initialises the decoder state.
+
+With ``train=True`` and ``drop_prob`` > 0, dropout applies at the
+reference's sites: ``pooled`` first, then ``memory``.  Masks come from the
+``torch.Generator`` the caller passes (``dropout``).
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
 
 
+def dropout(x: torch.Tensor, p: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax ``nn.Dropout`` semantics: keep each element with probability
+    ``1 - p`` (``uniform < 1 - p``) and scale it by ``1 / (1 - p)``.  The
+    uniforms come from ``generator``, which must live on ``x``'s device."""
+    if generator is None:
+        raise ValueError("dropout needs an explicit torch.Generator")
+    keep = 1.0 - p
+    u = torch.rand(x.shape, generator=generator, device=x.device)
+    return torch.where(u < keep, x / keep, torch.zeros_like(x))
+
+
 class FeatureEncoder(nn.Module):
     """Returns (memory (B, sum_m T_m, H), pooled (B, H))."""
 
-    def __init__(self, feat_dims: Sequence[int], hidden_size: int):
+    def __init__(self, feat_dims: Sequence[int], hidden_size: int,
+                 drop_prob: float = 0.0):
         super().__init__()
         if len(feat_dims) == 0:
             raise ValueError("need at least one feature modality")
+        self.drop_prob = drop_prob
         self.embed = nn.ModuleList(nn.Linear(int(d), hidden_size)
                                    for d in feat_dims)
         self.fuse = nn.Linear(len(feat_dims) * hidden_size, hidden_size)
 
-    def forward(self, feats: Sequence[torch.Tensor]):
+    def forward(self, feats: Sequence[torch.Tensor], train: bool = False,
+                generator: Optional[torch.Generator] = None):
         if len(feats) != len(self.embed):
             raise ValueError(f"expected {len(self.embed)} modalities, got "
                              f"{len(feats)}")
@@ -41,4 +60,7 @@ class FeatureEncoder(nn.Module):
             pooled.append(h.mean(dim=1))               # (B, H)
         memory = torch.cat(projected, dim=1)
         fused = torch.tanh(self.fuse(torch.cat(pooled, dim=-1)))
+        if train and self.drop_prob > 0:
+            fused = dropout(fused, self.drop_prob, generator)
+            memory = dropout(memory, self.drop_prob, generator)
         return memory, fused

@@ -1,10 +1,16 @@
 """Fused additive attention — K1, counterpart of the reference's
 ``ops/pallas_attention.py``.
 
-``fused_additive_attention`` launches the CUDA kernel ``csrc/attention.cu``
-for CUDA tensors and takes ``additive_attention_plain`` for CPU tensors;
-nothing else.  Forward only: the backward (the reference's ``_bwd``, plain
-XLA there) comes with the training slice as a plain autograd backward.
+``fused_additive_attention`` is a ``torch.autograd.Function``, the
+counterpart of the reference's ``jax.custom_vjp``.  Its forward launches
+the CUDA kernel ``csrc/attention.cu`` for CUDA tensors and takes
+``additive_attention_plain`` for CPU tensors; nothing else.  Its backward
+is ``additive_attention_backward`` on both devices: plain PyTorch, the
+reference's ``_bwd`` (plain XLA there too, not a TPU kernel), which
+recomputes ``tanh`` and the softmax weights in float32 from the saved
+inputs.  Autograd therefore keeps only references to the inputs, which
+the teacher-forced steps share (``proj_mem``, ``memory``), not per-step
+(B, T, A) residuals: the recompute trade of the reference's remat cell.
 
 ``attention_geometry`` is the kernel's launch geometry (one cluster of
 ``ATTN_CLUSTER`` blocks per row, each with its share of time steps and of
@@ -72,12 +78,33 @@ def additive_attention_plain(q: torch.Tensor, proj_mem: torch.Tensor,
     return ctx, w
 
 
-def fused_additive_attention(q: torch.Tensor, proj_mem: torch.Tensor,
-                             memory: torch.Tensor, score_v: torch.Tensor
-                             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """-> (ctx (B, H), w (B, T)); one launch of the K1 kernel on CUDA
-    tensors (counted in ``fused_additive_attention.launches``), the plain
-    version on CPU tensors."""
+def additive_attention_backward(q, proj_mem, memory, score_v, g_ctx, g_w
+                                ) -> Tuple[torch.Tensor, ...]:
+    """Gradients of ``(ctx, w)`` with respect to ``(q, proj_mem, memory,
+    score_v)`` from the upstream gradients ``g_ctx`` (B, H) and ``g_w``
+    (B, T): the reference's ``_bwd`` (``ops/pallas_attention.py``).  It
+    recomputes ``tanh`` and ``w`` in float32 from the inputs, so the result
+    depends on the inputs and upstream gradients only, not on which forward
+    ran."""
+    g_ctx = g_ctx.float()
+    g_w = g_w.float()
+    v = score_v.float()
+    memory_f = memory.float()
+    tanh = torch.tanh(proj_mem.float() + q.float()[:, None, :])
+    w = torch.softmax(torch.einsum("bta,a->bt", tanh, v), dim=-1)
+    g_w_total = g_w + torch.einsum("bh,bth->bt", g_ctx, memory_f)
+    ds = w * (g_w_total - (w * g_w_total).sum(-1, keepdim=True))
+    dt = ds[:, :, None] * v * (1.0 - tanh * tanh)
+    g_q = dt.sum(1)
+    g_v = torch.einsum("bta,bt->a", tanh, ds)
+    g_mem = torch.einsum("bt,bh->bth", w, g_ctx)
+    return (g_q.to(q.dtype), dt.to(proj_mem.dtype), g_mem.to(memory.dtype),
+            g_v.to(score_v.dtype))
+
+
+def _attention_forward(q, proj_mem, memory, score_v):
+    """The forward of ``fused_additive_attention``: one kernel launch on
+    CUDA tensors, the plain version on CPU tensors."""
     what = "fused_additive_attention"
     if not _cuda.on_cuda(what, {"q": q, "proj_mem": proj_mem,
                                 "memory": memory, "score_v": score_v}):
@@ -105,6 +132,29 @@ def fused_additive_attention(q: torch.Tensor, proj_mem: torch.Tensor,
     return ctx, w
 
 
+class _FusedAttention(torch.autograd.Function):
+    """K1 forward (kernel or plain version), plain backward."""
+
+    @staticmethod
+    def forward(ctx, q, proj_mem, memory, score_v):
+        ctx.save_for_backward(q, proj_mem, memory, score_v)
+        return _attention_forward(q, proj_mem, memory, score_v)
+
+    @staticmethod
+    def backward(ctx, g_ctx, g_w):
+        return additive_attention_backward(*ctx.saved_tensors, g_ctx, g_w)
+
+
+def fused_additive_attention(q: torch.Tensor, proj_mem: torch.Tensor,
+                             memory: torch.Tensor, score_v: torch.Tensor
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """-> (ctx (B, H), w (B, T)); one launch of the K1 kernel on CUDA
+    tensors (counted in ``fused_additive_attention.launches``), the plain
+    version on CPU tensors.  Differentiable on both devices through
+    ``additive_attention_backward``."""
+    return _FusedAttention.apply(q, proj_mem, memory, score_v)
+
+
 #: Kernel launches since the last reset (a run shows its main path went
-#: through the kernel by this count moving).
+#: through the kernel by this count moving).  The backward launches none.
 fused_additive_attention.launches = 0

@@ -109,10 +109,18 @@ def fused_decode_cell(x, c, h, q, proj_mem, memory, score_v, w, bias
     bias (4H,).  On CUDA tensors: the two launches of the K2 kernel
     (attention; gate product with the state update, started early by
     programmatic dependent launch), each counted in
-    ``fused_decode_cell.launches``; on CPU tensors: the plain version."""
+    ``fused_decode_cell.launches``; on CPU tensors: the plain version.
+    Forward only on both devices: raises ``RuntimeError`` in grad mode
+    when an input requires grad, instead of returning outputs that
+    autograd would silently treat as constants."""
     what = "fused_decode_cell"
     args = {"x": x, "c": c, "h": h, "q": q, "proj_mem": proj_mem,
             "memory": memory, "score_v": score_v, "w": w, "bias": bias}
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in args.values()):
+        raise RuntimeError(
+            f"{what}: K2 is forward only, as in the reference; call it "
+            "under torch.no_grad() (rollouts and decodes need no gradient)")
     if not _cuda.on_cuda(what, args):
         return decode_cell_plain(x, c, h, q, proj_mem, memory, score_v, w,
                                  bias)

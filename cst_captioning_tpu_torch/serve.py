@@ -28,32 +28,17 @@ import argparse
 import json
 import os
 import sys
-from typing import List, Tuple
 
 import numpy as np
 
 from . import default_device
+from .data.shapes import parse_feat_shapes
 from .data.vocab import Vocab
 from .models import CaptionModel
 from .serving.buckets import parse_buckets
 from .serving.engine import ServingEngine
 from .serving.server import CaptionServer, PreemptionHandler
 from .weights import init_random_, load_params_npz, model_from_flax
-
-
-def parse_feat_shapes(spec: str) -> List[Tuple[int, int]]:
-    """``"28x2048,1x4096"`` -> ``[(28, 2048), (1, 4096)]``."""
-    shapes = []
-    for tok in spec.replace(" ", "").split(","):
-        try:
-            t, d = (int(x) for x in tok.lower().split("x"))
-        except ValueError:
-            raise ValueError(f"bad feature shape {tok!r}; expected TxD, "
-                             "e.g. '28x2048,1x4096'") from None
-        if t < 1 or d < 1:
-            raise ValueError(f"feature shape {tok!r} must be positive")
-        shapes.append((t, d))
-    return shapes
 
 
 def parse_args(argv=None) -> argparse.Namespace:

@@ -1,5 +1,7 @@
 """Weights for the port: conversion from the reference's Flax parameter
-tree, flat ``.npz`` loading, and seeded random initialisation.
+tree, flat ``.npz`` loading, the Flax initialisers for training from
+scratch (``init_like_flax_``), and the seeded weights of the serving demo
+(``init_random_``).
 
 Layout: Flax ``Dense`` kernels are ``(in, out)``; the port TRANSPOSES them
 into ``nn.Linear`` weights ``(out, in)``.  The LSTM gate kernels are the
@@ -132,6 +134,56 @@ def model_from_flax(params: Mapping, device=None,
     model = CaptionModel(**config_from_flax(params), **model_kw)
     model.load_state_dict(from_flax(params), strict=True)
     return model.eval().to(dev)
+
+
+#: ``lecun_normal``'s correction: the std of a unit normal truncated to
+#: [-2, 2] (jax ``variance_scaling(..., "truncated_normal")``).
+_TRUNC_STD = .87962566103423978
+
+
+@torch.no_grad()
+def init_like_flax_(model: CaptionModel,
+                    generator: torch.Generator) -> CaptionModel:
+    """Weights for training from scratch, drawn as the reference's Flax
+    ``model.init`` draws them (the distributions, not the numbers): dense
+    kernels ``lecun_normal`` (normal truncated to two std, std
+    sqrt(1/fan_in)), biases zero, the word embedding normal with std
+    1/sqrt(E), the gate kernels per gate block: input side
+    ``lecun_normal``, each (H, H) recurrent block orthogonal; ``score_v``
+    normal with std 1/sqrt(A).  ``generator`` is a CPU generator, so every
+    device gets the same numbers."""
+
+    def lecun_(shape, fan_in):
+        std = (1.0 / fan_in) ** 0.5 / _TRUNC_STD
+        out = torch.empty(shape)
+        torch.nn.init.trunc_normal_(out, 0.0, std, -2 * std, 2 * std,
+                                    generator=generator)
+        return out
+
+    for name, p in model.named_parameters():
+        if name.endswith("bias"):
+            fresh = torch.zeros(p.shape)
+        elif name == "cell.embed.weight":
+            fresh = torch.randn(p.shape, generator=generator) \
+                / p.shape[1] ** 0.5
+        elif name == "cell.attn.score_v":
+            fresh = torch.randn(p.shape, generator=generator) \
+                / p.shape[0] ** 0.5
+        elif name.startswith("cell.lstm."):
+            n_in = p.shape[0] - p.shape[1] // 4
+            hid = p.shape[1] // 4
+            blocks_i = [lecun_((n_in, hid), n_in) for _ in range(4)]
+            blocks_h = []
+            for _ in range(4):
+                blk = torch.empty(hid, hid)
+                torch.nn.init.orthogonal_(blk, generator=generator)
+                blocks_h.append(blk)
+            fresh = torch.cat([torch.cat(blocks_i, dim=1),
+                               torch.cat(blocks_h, dim=1)], dim=0)
+        else:           # nn.Linear weights, (out, in)
+            fresh = lecun_(p.shape, p.shape[1])
+        p.copy_(fresh.to(p.device))
+    return model
 
 
 @torch.no_grad()

@@ -1,7 +1,8 @@
 """The port stands alone: no module of ``cst_captioning_tpu_torch`` and
 not ``chip_smoke.py`` imports JAX, Flax, Optax, Orbax or the reference
-package; and no entry point runs on the CPU unless the caller asks for
-it.
+package, nor anything but the standard library, numpy and torch (the
+card's machine has no ``h5py``, for one); and no entry point runs on the
+CPU unless the caller asks for it.
 """
 
 import ast
@@ -22,6 +23,8 @@ from cst_captioning_tpu_torch.weights import model_from_flax
 REPO = Path(__file__).resolve().parent.parent
 PKG = REPO / "cst_captioning_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "cst_captioning_tpu")
+ALLOWED = frozenset(sys.stdlib_module_names) | {"numpy", "torch",
+                                                PKG.name}
 
 
 def _sources():
@@ -51,7 +54,8 @@ def _imported_modules(path: Path):
 def test_sources_found():
     names = {p.name for p in _sources()}
     assert {"chip_smoke.py", "engine.py", "decode_cell_kernel.py",
-            "attention_kernel.py", "serve.py"} <= names
+            "attention_kernel.py", "serve.py", "train.py", "trainer.py",
+            "synthetic.py", "ciderd.py"} <= names
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: str(
@@ -60,6 +64,14 @@ def test_no_reference_or_jax_imports(path):
     for mod in _imported_modules(path):
         top = mod.split(".")[0]
         assert top not in FORBIDDEN, f"{path} imports {mod}"
+
+
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: str(
+    p.relative_to(REPO)))
+def test_imports_only_stdlib_numpy_torch(path):
+    for mod in _imported_modules(path):
+        top = mod.split(".")[0]
+        assert top in ALLOWED, f"{path} imports {mod}"
 
 
 def test_fresh_import_loads_no_jax():

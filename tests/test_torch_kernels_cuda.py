@@ -164,3 +164,73 @@ def test_served_greedy_captions_equal_offline_on_card(cuda):
     offline = greedy_decode(model, [torch.from_numpy(f).to(cuda)
                                     for f in feats], 12, decode_chunk=4)
     np.testing.assert_array_equal(np.stack(served), offline.cpu().numpy())
+
+
+def test_attention_kernel_gradients_equal_plain_backward(cuda):
+    """K1's autograd route at the training shapes (T=29, A=H=512, B=64):
+    gradients through the kernel equal, bit for bit, the plain backward on
+    the same inputs and upstream gradients (it recomputes from the
+    inputs), and autograd through the plain forward within 1e-5 of the
+    largest gradient (float32 sums in another order)."""
+    inputs = [a.to(cuda) for a in _attention_inputs(64, 5)]
+    g = torch.Generator().manual_seed(6)
+    g_ctx = torch.randn(64, H, generator=g).to(cuda)
+    g_w = torch.randn(64, T, generator=g).to(cuda)
+    leaves = [a.clone().requires_grad_() for a in inputs]
+    before = k1.fused_additive_attention.launches
+    torch.autograd.backward(list(k1.fused_additive_attention(*leaves)),
+                            [g_ctx, g_w])
+    assert k1.fused_additive_attention.launches == before + 1
+    want = k1.additive_attention_backward(*inputs, g_ctx, g_w)
+    for leaf, grad in zip(leaves, want):
+        assert torch.equal(leaf.grad, grad)
+    plain = [a.clone().requires_grad_() for a in inputs]
+    torch.autograd.backward(list(k1.additive_attention_plain(*plain)),
+                            [g_ctx, g_w])
+    for leaf, ref in zip(leaves, plain):
+        scale = max(1.0, ref.grad.abs().max().item())
+        assert (leaf.grad - ref.grad).abs().max().item() <= TOL * scale
+
+
+def test_decode_cell_kernel_refuses_grad_mode(cuda):
+    args = [t.to(cuda) for t in _cell_inputs(8, 2)]
+    args[7].requires_grad_()
+    with pytest.raises(RuntimeError, match="forward only"):
+        k2.fused_decode_cell(*args)
+    with torch.no_grad():
+        c, h = k2.fused_decode_cell(*args)
+    assert not c.requires_grad and torch.isfinite(h).all()
+
+
+def test_full_width_xe_step_gradients_k1_on_and_off(cuda):
+    """One XE step at full width (E=H=A=512, feats 28x2048 + 1x4096,
+    V=7752, 8 videos x 20 captions, dropout on with the same masks): the
+    parameter gradients with the decoder's attention on K1 equal those of
+    the plain attention within 1e-5 of each tensor's largest gradient."""
+    from cst_captioning_tpu_torch.ops.losses import cross_entropy_loss
+    from cst_captioning_tpu_torch.weights import init_like_flax_
+
+    rng = np.random.default_rng(0)
+    feats = [torch.from_numpy(rng.standard_normal((8, 28, 2048),
+                                                  dtype=np.float32)).to(cuda),
+             torch.from_numpy(rng.standard_normal((8, 1, 4096),
+                                                  dtype=np.float32)).to(cuda)]
+    labels = torch.from_numpy(rng.integers(1, 7752, size=(160, 30))).to(cuda)
+    labels[::3, 12:] = 0
+    grads = {}
+    for use_kernel in (True, False):
+        model = CaptionModel(7752, [2048, 4096],
+                             use_kernel_attention=use_kernel)
+        init_like_flax_(model, torch.Generator().manual_seed(0))
+        model.to(cuda)
+        reset_launch_counts()
+        logits = model(feats, labels, 20, train=True,
+                       generator=torch.Generator(cuda).manual_seed(1))
+        cross_entropy_loss(logits, labels).backward()
+        assert launch_counts()["fused_additive_attention"] == (
+            30 if use_kernel else 0)
+        grads[use_kernel] = {n: p.grad for n, p in model.named_parameters()}
+    for name, ref in grads[False].items():
+        scale = max(1.0, ref.abs().max().item())
+        assert (grads[True][name] - ref).abs().max().item() <= TOL * scale, \
+            name
