@@ -31,23 +31,34 @@ Phases, each printed as it runs; any failure exits non-zero:
    (``python -m cst_captioning_tpu_torch.train``): a synthetic train
    split at MSR-VTT's size (6513 videos x 20 captions, rich vocabulary
    8000, which realises 7752 rows) and a 497-video val split; then XE
-   (2 warm-up + 10 timed steps), WXE (3 timed), CST with the greedy
-   baseline (1 warm-up + 3 timed), each stage a fresh ``Trainer`` started
-   from the previous one's ``best.pt``, and one validation pass.  K1 runs
-   every teacher-forced step (``--pallas_attention 1``) and K2 every
-   rollout and validation step (``--decode_kernel fused``).  Before the
-   stages: K1 (forward, and the gradients of its autograd backward) at
-   the training batch B = 1280 and K2 at the rollout batch B = 1344,
-   against their plain versions within 1e-5, with times; K1's gradients
-   through the kernel equal, bit for bit, the plain backward on the same
-   inputs and upstream gradients at B = 64.
+   (2 warm-up + 10 timed steps), WXE (3 timed), and CST with the greedy
+   baseline on both of its paths, each stage a fresh ``Trainer`` started
+   from the previous one's ``best.pt``.  CST first on the default fused
+   path (``--device_rewards 1``: rollout, on-device CIDEr-D, gradient and
+   guarded update; the table build, the table bytes and the match
+   envelope printed; 1 warm-up + 3 timed steps with the per-phase
+   medians from CUDA events); one all-NaN feature batch through the
+   guarded fused step (``bad_step`` 1, every parameter and optimizer
+   tensor bit-identical); one validation pass; one real rollout's 1344
+   captions scored on the device against the host CIDEr-D within 1e-4
+   relative; then the host-reward path (``--device_rewards 0
+   --overlap_rewards 2``: 2 pushes to fill the pipeline, 1 warm-up and 2
+   timed steady iterations, the drain).  K1 runs every teacher-forced
+   step (``--pallas_attention 1``) and K2 every rollout and validation
+   step (``--decode_kernel fused``).  Before the stages: K1 (forward,
+   and the gradients of its autograd backward) at the training batch
+   B = 1280 and K2 at the rollout batch B = 1344, against their plain
+   versions within 1e-5, with times; K1's gradients through the kernel
+   equal, bit for bit, the plain backward on the same inputs and
+   upstream gradients at B = 64.
 
 Each serving phase sets every kernel's launch count to 0 just before it
 and reads the counts just after; a kernel of the path launched other
 than its count per decode step (K2 twice, K1 once) fails the run.  The
 training phase does the same around each timed step: K1 exactly
-``max_length`` launches per teacher-forced forward, K2 exactly 2 per
-executed rollout step.
+``max_length`` launches per teacher-forced forward (one per step the
+iteration completed), K2 exactly 2 per executed step of the rollout it
+dispatched; the fused path builds no host reward.
 
 Output: phase lines as they run; then a JSON object with one entry per
 kernel (times at the serving batch B = 8, every measured batch under
@@ -626,8 +637,9 @@ def stage_args(*extra) -> list:
 
 def timed_steps(trainer, n: int, check) -> list:
     """``n`` iterations of ``trainer``, each synchronised and timed, with
-    the launch counts set to 0 before and checked by ``check(metrics,
-    launches)`` after each.  -> [(seconds, metrics, launches)]."""
+    the launch counts set to 0 before and checked by ``check(completed,
+    launches)`` after each (``completed``: the (step, metrics) pairs the
+    iteration completed).  -> [(seconds, completed, launches)]."""
     import torch
 
     from cst_captioning_tpu_torch.ops import launch_counts, \
@@ -637,12 +649,12 @@ def timed_steps(trainer, n: int, check) -> list:
     for _ in range(n):
         reset_launch_counts()
         t0 = time.perf_counter()
-        m = trainer.iteration()
+        done = trainer.iteration()
         torch.cuda.synchronize()
         sec = time.perf_counter() - t0
         launches = launch_counts()
-        check(m, launches)
-        out.append((sec, m, launches))
+        check(done, launches)
+        out.append((sec, done, launches))
     return out
 
 
@@ -651,7 +663,7 @@ def report_stage(name: str, steps, rows: int) -> float:
 
     secs = np.array([s for s, _, _ in steps])
     med = float(np.median(secs))
-    losses = [float(m["loss"]) for _, m, _ in steps]
+    losses = [float(m["loss"]) for _, done, _ in steps for _, m in done]
     print(f"train {name}: {len(steps)} timed steps, median "
           f"{med * 1e3:.3f} ms/step (min {secs.min() * 1e3:.3f}, max "
           f"{secs.max() * 1e3:.3f}) = {rows / med:.1f} captions/s; loss "
@@ -662,9 +674,103 @@ def report_stage(name: str, steps, rows: int) -> float:
     return med
 
 
+def phase_medians(steps) -> dict:
+    """Median milliseconds of each phase over the completed steps."""
+    import numpy as np
+
+    from cst_captioning_tpu_torch.training.trainer import phase_ms
+
+    per = {}
+    for _, done, _ in steps:
+        for _, m in done:
+            ms = phase_ms(m)
+            for key in ("fetch_wait_s", "reward_s"):
+                if key in m:
+                    ms[key.replace("_s", "")] = m[key] * 1e3
+            for key, val in ms.items():
+                per.setdefault(key, []).append(val)
+    return {key: float(np.median(v)) for key, v in per.items()}
+
+
+def device_and_host_scores(cst, host_scorer) -> None:
+    """One real rollout of the fused CST trainer (1280 samples and 64
+    greedy rows of one batch), and the batch's 1280 reference caption
+    rows, which score high, scored on the device against the host
+    CIDEr-D (``metrics/ciderd.py``): within 1e-4 relative (1e-6 absolute
+    for zero scores)."""
+    import numpy as np
+    import torch
+
+    from cst_captioning_tpu_torch.ops.device_ciderd import ciderd_scores
+    from cst_captioning_tpu_torch.training.steps import rollout
+
+    batch = cst.loader.next_batch()
+    vix = torch.from_numpy(batch.video_ix).cuda()
+    hyp_vix = torch.repeat_interleave(vix, TRAIN_SEQ)
+    sampled, greedy, n_steps = rollout(
+        cst.model, cst._feats(batch), MAX_LEN, TRAIN_SEQ, cst.noise,
+        greedy_baseline=True, decode_chunk=CHUNK)
+    labels = torch.from_numpy(batch.labels).long().cuda()
+    corpus, tables = cst.fused["corpus"], cst.fused["tables"]
+    row_vids = np.repeat(batch.video_ids, TRAIN_SEQ).tolist()
+    for name, rows, dev_vix, vids in (
+            ("rollout", torch.cat([sampled, greedy]),
+             torch.cat([hyp_vix, vix]), row_vids + list(batch.video_ids)),
+            ("reference captions", labels, hyp_vix, row_vids)):
+        dev = ciderd_scores(rows, dev_vix, corpus, tables).cpu().numpy()
+        rows = rows.cpu().numpy()
+        t0 = time.perf_counter()
+        host = host_scorer(vids, rows)
+        host_s = time.perf_counter() - t0
+        err = np.abs(dev - host)
+        rel = float((err / np.maximum(np.abs(host), 1e-12))[host != 0].max(
+            initial=0.0))
+        print(f"train CST reward check, {name}: {len(rows)} captions"
+              + (f" ({n_steps} rollout steps)" if name == "rollout" else "")
+              + f", on-device CIDEr-D vs the host scorer: max relative "
+              f"error {rel:.3e}, max abs {err.max():.3e}; mean "
+              f"{dev.mean():.6f} vs {host.mean():.6f}; "
+              f"{int((host > 0).sum())} nonzero; host scoring {host_s:.3f} s")
+        if not np.all(err <= 1e-4 * np.abs(host) + 1e-6):
+            fail(f"on-device CIDEr-D disagrees with the host scorer on the "
+                 f"{name}: max relative error {rel:.3e}")
+    if len(sampled) + len(greedy) != ROLLOUT_ROWS:
+        fail(f"the rollout had {len(sampled) + len(greedy)} rows, "
+             f"{ROLLOUT_ROWS} expected")
+
+
+def nan_guard_check(cst) -> None:
+    """One all-NaN feature batch through the guarded fused step: bad_step
+    1, every parameter, optimizer tensor and the count bit-identical."""
+    import numpy as np
+    import torch
+
+    opt = cst.optimizer
+    before = ([p.detach().clone() for p in cst.model.parameters()],
+              [{k: v.clone() for k, v in st.items()} for st in opt.state],
+              opt.count.clone())
+    batch = cst.loader.next_batch()
+    batch.feats = [np.full_like(f, np.nan) for f in batch.feats]
+    (_, m), = cst.rl_iteration(batch)
+    torch.cuda.synchronize()
+    same = (all(torch.equal(a, p.detach())
+                for a, p in zip(before[0], cst.model.parameters()))
+            and all(torch.equal(a[k], st[k])
+                    for a, st in zip(before[1], opt.state) for k in st)
+            and torch.equal(before[2], opt.count))
+    print(f"train CST NaN guard: all-NaN features -> bad_step "
+          f"{float(m['bad_step'])}, loss {float(m['loss'])}; "
+          f"{len(before[0])} parameters, "
+          f"{sum(len(st) for st in opt.state)} optimizer tensors and the "
+          f"count (={float(opt.count)}) bit-identical: {same}")
+    if float(m["bad_step"]) != 1.0 or not same:
+        fail("the guarded fused step changed state on an all-NaN batch")
+
+
 def train_phase():
     """Phase 7: XE -> WXE -> CST at full width through the train CLI's
-    parser and ``Trainer``.  -> {kernel: launches in the phase}."""
+    parser and ``Trainer``; CST on the fused path (the default), then on
+    the host-reward path.  -> {kernel: launches in the phase}."""
     import shutil
 
     import numpy as np
@@ -692,10 +798,11 @@ def train_phase():
     rows = TRAIN_BATCH * TRAIN_SEQ
     total = {"fused_additive_attention": 0, "fused_decode_cell": 0}
 
-    def teacher_forced(m, launches):
-        if launches["fused_additive_attention"] != MAX_LEN:
+    def teacher_forced(done, launches):
+        if launches["fused_additive_attention"] != MAX_LEN * len(done):
             fail(f"K1 launched {launches['fused_additive_attention']} times "
-                 f"in one teacher-forced step, {MAX_LEN} expected")
+                 f"in {len(done)} teacher-forced steps, {MAX_LEN} a step "
+                 "expected")
 
     def add(steps):
         for _, _, launches in steps:
@@ -715,7 +822,8 @@ def train_phase():
     xe_steps = timed_steps(xe, 10, teacher_forced)
     add(xe_steps)
     report_stage("XE", xe_steps, rows)
-    if not float(xe_steps[-1][1]["loss"]) < float(xe_steps[0][1]["loss"]):
+    first, last = (float(xe_steps[i][1][0][1]["loss"]) for i in (0, -1))
+    if not last < first:
         fail("XE loss of the last timed step is not below the first")
     # Where an XE step's device time goes (two more steps, not counted).
     prof = device_profile(xe.iteration, iters=1)
@@ -737,36 +845,62 @@ def train_phase():
     start = save_best(wxe, "wxe")
     del wxe
 
-    def rl_step(m, launches):
-        teacher_forced(m, launches)
-        if launches["fused_decode_cell"] != 2 * m["rollout_steps"]:
-            fail(f"K2 launched {launches['fused_decode_cell']} times in a "
-                 f"rollout of {m['rollout_steps']} steps (2 a step)")
-        if not np.isfinite(m["reward"]):
-            fail(f"CST reward not finite: {m['reward']}")
+    cst_args = ("--use_rl", "1", "--rl_baseline", "greedy",
+                "--learning_rate", "2e-5", "--start_from", start)
 
+    # CST, fused on-device path (--device_rewards 1, the default).
+    t0 = time.perf_counter()
     cst = Trainer(train.parse_args(stage_args(
-        "--use_rl", "1", "--rl_baseline", "greedy",
-        "--learning_rate", "2e-5", "--start_from", start,
-        "--checkpoint_path", os.path.join(ckpt_root, "cst"))), splits)
+        *cst_args, "--checkpoint_path", os.path.join(ckpt_root, "cst"))),
+        splits)
+    setup = cst.reward_setup
+    print(f"train CST fused: trainer built in {time.perf_counter() - t0:.1f} "
+          f"s; reward tables built in {setup['table_build_s']:.3f} s "
+          f"(host), {setup['table_bytes'] / 2 ** 20:.1f} MiB on the device "
+          f"({setup['ngrams']} distinct n-grams in {setup['slots']} df "
+          f"slots, refs x grams {setup['refs_grams']}); "
+          f"match envelope {setup['envelope_bytes'] / 2 ** 20:.1f} MiB "
+          f"against a budget of {setup['budget_bytes'] / 2 ** 20:.0f} MiB: "
+          + ("one shot" if setup["ref_chunk"] is None
+             else f"chunked at {setup['ref_chunk']} refs"))
+    if cst.reward_computer is not None or cst.pipeline is not None:
+        fail("the default CST trainer built a host reward path")
+
+    def fused_step(done, launches):
+        teacher_forced(done, launches)
+        (_, m), = done
+        if launches["fused_decode_cell"] != 2 * float(m["rollout_steps"]):
+            fail(f"K2 launched {launches['fused_decode_cell']} times in a "
+                 f"rollout of {float(m['rollout_steps'])} steps (2 a step)")
+        if not np.isfinite(float(m["reward"])):
+            fail(f"CST reward not finite: {float(m['reward'])}")
+
     before = [p.detach().clone() for p in cst.model.parameters()]
-    add(timed_steps(cst, 1, rl_step))
-    cst_steps = timed_steps(cst, 3, rl_step)
+    add(timed_steps(cst, 1, fused_step))
+    cst_steps = timed_steps(cst, 3, fused_step)
     add(cst_steps)
-    report_stage("CST", cst_steps, rows)
+    fused_ms = report_stage("CST fused", cst_steps, rows)
     changed = sum(not torch.equal(a, p.detach())
                   for a, p in zip(before, cst.model.parameters()))
-    ms = {key: 1e3 * float(np.median([m[key] for _, m, _ in cst_steps]))
-          for key in ("rollout_s", "reward_s", "grad_s")}
-    print(f"train CST phases (median ms): rollout {ms['rollout_s']:.3f} "
-          f"({ROLLOUT_ROWS} rows, steps "
-          f"{[m['rollout_steps'] for _, m, _ in cst_steps]}), host reward "
-          f"{ms['reward_s']:.3f}, grad {ms['grad_s']:.3f}; reward "
-          f"{[round(m['reward'], 6) for _, m, _ in cst_steps]}, advantage "
-          f"{[round(m['advantage'], 6) for _, m, _ in cst_steps]}; "
+    ms = phase_medians(cst_steps)
+    print(f"train CST fused phases (median ms, CUDA events): rollout "
+          f"{ms['rollout']:.3f} ({ROLLOUT_ROWS} rows, steps "
+          f"{[float(m['rollout_steps']) for _, d, _ in cst_steps for _, m in d]}"
+          f"), on-device reward {ms['reward']:.3f}, grad {ms['grad']:.3f}; "
+          f"step {fused_ms * 1e3:.3f} ms = {rows / fused_ms:.1f} captions/s; "
+          f"reward {[round(float(m['reward']), 6) for _, d, _ in cst_steps for _, m in d]}, "
+          f"advantage {[round(float(m['advantage']), 6) for _, d, _ in cst_steps for _, m in d]}; "
           f"{changed}/{len(before)} parameter tensors changed")
     if changed == 0:
         fail("CST steps left every parameter unchanged")
+    # Where a fused step's device time goes (two more steps, not counted).
+    prof = device_profile(cst.iteration, iters=1)
+    print(f"train CST fused: profiled step: device time {prof['ms']:.3f} ms "
+          f"(summed), busy {prof['busy_ms']:.3f} ms of {prof['wall_ms']:.3f} "
+          f"ms wall = busy share {prof['busy_ms'] / prof['wall_ms']:.3f}; "
+          "top kernels (name, ms, launches): " + "; ".join(
+              f"{k} {ms:.3f} {n:.0f}" for k, ms, n in prof["top"]))
+    nan_guard_check(cst)
 
     from cst_captioning_tpu_torch.ops import launch_counts, \
         reset_launch_counts
@@ -784,10 +918,52 @@ def train_phase():
             or launches["fused_decode_cell"] % 2
             or not np.isfinite(scores["CIDEr"])):
         fail(f"validation: launches {launches}, scores {scores}")
+
+    # CST, host-reward path: --device_rewards 0 through the pipeline at
+    # depth 2.  Two pushes fill it, then 1 warm-up and 2 timed steady
+    # iterations (each a rollout dispatched and an older step completed),
+    # then the drain.
+    host = Trainer(train.parse_args(stage_args(
+        *cst_args, "--device_rewards", "0", "--overlap_rewards", "2",
+        "--checkpoint_path", os.path.join(ckpt_root, "cst_host"))), splits)
+    device_and_host_scores(cst, host.reward_computer._score)
+    del cst
+
+    def host_step(done, launches):
+        teacher_forced(done, launches)
+        if launches["fused_decode_cell"] != 2 * host.last_rollout_steps:
+            fail(f"host path: K2 launched {launches['fused_decode_cell']} "
+                 f"times in a rollout of {host.last_rollout_steps} steps")
+
+    fill = timed_steps(host, 2, host_step)
+    if any(done for _, done, _ in fill):
+        fail("the depth-2 pipeline completed a step while filling")
+    add(fill)
+    add(timed_steps(host, 1, host_step))
+    host_steps = timed_steps(host, 2, host_step)
+    add(host_steps)
+    host_ms = report_stage("CST host (depth 2)", host_steps, rows)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    drained = host.drain()
+    torch.cuda.synchronize()
+    drain_s = time.perf_counter() - t0
+    launches = launch_counts()
+    teacher_forced(drained, launches)
+    add([(drain_s, drained, launches)])
+    ms = phase_medians(host_steps)
+    print(f"train CST host phases (median ms): rollout {ms['rollout']:.3f} "
+          f"(CUDA events), fetch wait {ms['fetch_wait']:.3f}, host reward "
+          f"{ms['reward']:.3f}, grad {ms['grad']:.3f} (CUDA events); "
+          f"iteration {host_ms * 1e3:.3f} ms = {rows / host_ms:.1f} "
+          f"captions/s; in flight {[m['overlap_inflight'] for _, d, _ in host_steps for _, m in d]}; "
+          f"drain of {len(drained)} steps {drain_s * 1e3:.3f} ms")
+    if host.fused is not None or len(drained) != 2:
+        fail(f"host path: {len(drained)} steps drained, 2 expected")
     print(f"train peak device memory: "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB "
           f"(torch.cuda.max_memory_allocated)")
-    del cst
+    del host
     shutil.rmtree(ckpt_root, ignore_errors=True)
     return total
 

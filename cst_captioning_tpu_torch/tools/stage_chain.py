@@ -8,13 +8,17 @@ The spec and hyperparameters are those of the reference's recorded chain
 videos, rich vocabulary 400, width 192, batch 32 x 20; XE 100 epochs at
 2e-4, WXE 20 at 1e-4, CST with the scb-sample baseline 12 at 2e-5; XE and
 WXE halve the rate every 30 epochs with patience 25, XE not stopping
-before epoch 30).  The reference ran bfloat16 with on-device rewards;
-the port runs float32 with the host reward.  Each stage's best
-validation CIDEr-D is printed beside the reference's, then one JSON line
-with all three.  Every stage runs K1 in teacher forcing and K2 in
+before epoch 30).  The reference ran bfloat16 logits with on-device
+rewards (``device_rewards 1``: strictly on-policy, float32 CIDEr-D) and
+device-resident features; the port runs float32 logits, and CST on the
+fused on-device path by default (``--cst_device_rewards 1``) or on the
+host reward (``0``, the pipeline at its default depth 2).  Each stage's
+best validation CIDEr-D is printed beside the reference's, then one JSON
+line with all three.  Every stage runs K1 in teacher forcing and K2 in
 rollouts and validation.  ``--stages cst`` with ``--cst_baseline`` /
-``--cst_temperature`` / ``--cst_noise_dtype`` runs another CST stage from
-the same WXE checkpoint, into its own directory.
+``--cst_temperature`` / ``--cst_noise_dtype`` / ``--cst_device_rewards``
+runs another CST stage from the same WXE checkpoint, into its own
+directory.
 """
 
 from __future__ import annotations
@@ -34,7 +38,8 @@ REFERENCE = {"xe": 2.5352, "wxe": 2.8277, "cst": 3.1096}
 def stage_argv(out_dir: str, xe_patience: int = 25,
                cst_baseline: str = "scb-sample",
                cst_temperature: float = 1.0,
-               cst_noise_dtype: str = "float32") -> dict:
+               cst_noise_dtype: str = "float32",
+               cst_device_rewards: int = 1) -> dict:
     common = ["--synthetic_videos", "512", "--synthetic_val_videos", "128",
               "--synthetic_rich_vocab", "400", "--captions_per_video", "20",
               "--feat_shapes", "28x2048,1x4096", "--synthetic_seed", "0",
@@ -51,6 +56,8 @@ def stage_argv(out_dir: str, xe_patience: int = 25,
                else f"cst_{cst_baseline}_T{cst_temperature:g}"
                + ("" if cst_noise_dtype == "float32"
                   else f"_{cst_noise_dtype}"))
+    if not cst_device_rewards:
+        cst_dir += "_host"
     return {
         "xe": common + sched + [
             "--max_patience", str(xe_patience),
@@ -65,6 +72,7 @@ def stage_argv(out_dir: str, xe_patience: int = 25,
             "--use_rl", "1", "--rl_baseline", cst_baseline,
             "--temperature", str(cst_temperature),
             "--noise_dtype", cst_noise_dtype,
+            "--device_rewards", str(cst_device_rewards),
             "--max_patience", "0", "--max_epochs", "12",
             "--learning_rate", "2e-5", "--start_from", f"{ck}/wxe",
             "--checkpoint_path", f"{ck}/{cst_dir}"],
@@ -88,11 +96,16 @@ def main(argv=None) -> int:
                    choices=("float32", "bfloat16"),
                    help="dtype of CST's Gumbel noise; the reference's chain "
                         "drew it in bfloat16")
+    p.add_argument("--cst_device_rewards", type=int, default=1,
+                   choices=(0, 1),
+                   help="CST's reward: 1 = the fused on-device CIDEr-D "
+                        "step (the reference chain's device_rewards 1), "
+                        "0 = the host reward pipeline")
     args = p.parse_args(argv)
     os.makedirs(args.out_dir, exist_ok=True)
     stages = stage_argv(args.out_dir, args.xe_max_patience,
                         args.cst_baseline, args.cst_temperature,
-                        args.cst_noise_dtype)
+                        args.cst_noise_dtype, args.cst_device_rewards)
     results = {}
     for name in args.stages.split(","):
         t0 = time.perf_counter()

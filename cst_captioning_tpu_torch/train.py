@@ -7,6 +7,13 @@ one stage per run, as the reference runs them.
     CST:  ... --use_rl 1 --rl_baseline greedy|scb-sample|scb-gt \\
               --start_from ck/wxe --checkpoint_path ck/cst
 
+CST runs the fused on-device step by default (``--device_rewards 1``:
+rollout, on-device CIDEr-D, REINFORCE gradient and the guarded update,
+strictly on-policy); ``--device_rewards 0`` scores on the host through a
+pipeline ``--overlap_rewards`` rollouts deep.  The divergence guard
+(``--divergence_guard 1``) skips non-finite updates on the device and
+rolls back after ``--divergence_max_bad`` in a row.
+
 Flags keep the reference's names (its ``opts.py``).  The data are
 synthetic splits built in memory from ``--synthetic_seed``
 (``--synthetic_videos``, ``--synthetic_val_videos``,
@@ -55,7 +62,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     g = p.add_argument_group("optimisation")
     g.add_argument("--batch_size", type=int, default=64)
     g.add_argument("--seq_per_img", type=int, default=20)
-    g.add_argument("--optim", choices=OPTIMIZERS, default="adam")
+    g.add_argument("--optim", choices=OPTIMIZERS, default="adam",
+                   help="optax's update rules and defaults")
     g.add_argument("--learning_rate", type=float, default=2e-4)
     g.add_argument("--grad_clip", type=float, default=10.0)
     g.add_argument("--learning_rate_decay_rate", type=float, default=0.8)
@@ -80,6 +88,33 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="dtype the rollout's Gumbel noise is drawn and "
                         "rounded in; bfloat16 is the draw the reference "
                         "makes under --use_bfloat16")
+    g.add_argument("--device_rewards", type=int, default=1,
+                   help="1 = CIDEr-D on the device and the whole CST "
+                        "iteration in one fused step (strictly on-policy); "
+                        "0 = the host reward path")
+    g.add_argument("--device_cider_chunk_mb", type=float, default=256,
+                   help="budget of the on-device reward's hyp-ref match "
+                        "tensor; over it the match is chunked over the "
+                        "references")
+    g.add_argument("--overlap_rewards", type=int, default=2,
+                   help="host-path (--device_rewards 0) pipeline depth: "
+                        "rollouts in flight while the host scores; 0 = "
+                        "serial, k >= 1 = samples up to k updates stale. "
+                        "Ignored under --device_rewards 1")
+    g.add_argument("--device_feats", type=int, default=0,
+                   help="1 = every training video's features resident on "
+                        "the device, gathered by video index")
+    g.add_argument("--device_feats_max_gb", type=float, default=8.0,
+                   help="refuse --device_feats over this many GB")
+    g = p.add_argument_group("resilience")
+    g.add_argument("--divergence_guard", type=int, default=1,
+                   help="1 = skip a step with a non-finite loss or gradient "
+                        "norm on the device, and roll back after "
+                        "--divergence_max_bad in a row")
+    g.add_argument("--divergence_max_bad", type=int, default=3,
+                   help="consecutive non-finite steps before a rollback")
+    g.add_argument("--divergence_max_rollbacks", type=int, default=2,
+                   help="rollbacks before the run aborts as unrecoverable")
     g = p.add_argument_group("validation and run")
     g.add_argument("--max_length", type=int, default=30,
                    help="label length and decode length")
@@ -92,7 +127,23 @@ def parse_args(argv=None) -> argparse.Namespace:
     g.add_argument("--log_every", type=int, default=20)
     g.add_argument("--device", default=None,
                    help="torch device; default cuda (raises without a GPU)")
-    return p.parse_args(argv)
+    opt = p.parse_args(argv)
+    _warn_overlap_under_device_rewards(
+        opt, sys.argv[1:] if argv is None else argv)
+    return opt
+
+
+def _warn_overlap_under_device_rewards(opt, argv) -> None:
+    """``--overlap_rewards`` set explicitly under ``--device_rewards 1``
+    is ignored (the fused step has no host boundary): one line on
+    stderr."""
+    if opt.device_rewards and any(
+            a == "--overlap_rewards" or a.startswith("--overlap_rewards=")
+            for a in argv):
+        print("warning: --overlap_rewards is ignored under "
+              "--device_rewards 1 (the fused step has no host reward "
+              "boundary to overlap); pass --device_rewards 0 to use the "
+              "host pipeline", file=sys.stderr)
 
 
 def main(argv=None) -> int:

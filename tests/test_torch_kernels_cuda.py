@@ -234,3 +234,86 @@ def test_full_width_xe_step_gradients_k1_on_and_off(cuda):
         scale = max(1.0, ref.abs().max().item())
         assert (grads[True][name] - ref).abs().max().item() <= TOL * scale, \
             name
+
+
+def _ciderd_world(device, seed=0, n_videos=64, n_refs=20, words=300):
+    """Seeded references (some words outside the vocabulary) and their
+    on-device CIDEr-D tables on ``device``."""
+    from cst_captioning_tpu_torch.training.device_rewards import \
+        build_device_tables
+
+    rng = np.random.default_rng(seed)
+    pool = [f"w{i}" for i in range(words)]
+    w2i = {w: i + 1 for i, w in enumerate(pool[:words - 20])}
+    refs = {f"v{v}": [" ".join(rng.choice(pool[:40 + v], int(
+        rng.integers(3, 10)))) for _ in range(n_refs)]
+        for v in range(n_videos)}
+    return build_device_tables(refs, w2i, device=device)
+
+
+def test_device_ciderd_on_card_equals_cpu(cuda):
+    """The on-device CIDEr-D on the card against the same function on the
+    CPU: 64 videos x 20 references, 1344 rows of 30 tokens (a rollout's
+    shape), within 1e-6 relative; the chunked match equal to the one-shot
+    within 1e-6 as well."""
+    from cst_captioning_tpu_torch.ops.device_ciderd import ciderd_scores
+
+    cpu, card = _ciderd_world("cpu"), _ciderd_world(cuda)
+    for want, got in zip((*cpu[0], *cpu[1]), (*card[0], *card[1])):
+        assert torch.equal(want, got.cpu())
+    rng = np.random.default_rng(1)
+    rows = rng.integers(1, 60, size=(1344, 30))
+    for i, n in enumerate(rng.integers(0, 31, 1344)):
+        rows[i, n:] = 0
+    rows = torch.from_numpy(rows)
+    vix = torch.from_numpy(rng.integers(0, 64, 1344))
+    want = ciderd_scores(rows, vix, cpu[0], cpu[1])
+    for chunk in (None, 3):
+        got = ciderd_scores(rows.to(cuda), vix.to(cuda), card[0], card[1],
+                            ref_chunk=chunk).cpu()
+        assert got.dtype == torch.float32
+        err = ((got - want).abs() / want.abs().clamp(min=1e-6)).max().item()
+        assert err <= 1e-6, (chunk, err)
+    assert (want > 0).sum() > 1000
+
+
+def test_guarded_fused_step_on_nan_features_changes_nothing_on_card(cuda):
+    """A guarded fused CST step with K1 and K2 on all-NaN features:
+    ``bad_step`` 1 and every parameter, Adam moment and the count
+    bit-identical to before the step (after one good step)."""
+    from cst_captioning_tpu_torch.ops.sampling import gumbel_noise
+    from cst_captioning_tpu_torch.training.state import Optimizer
+    from cst_captioning_tpu_torch.training.steps import fused_cst_step
+
+    corpus, tables, _ = _ciderd_world(cuda, n_videos=8, n_refs=5, words=60)
+    model = CaptionModel(61, [16, 8], embed_size=32, hidden_size=32,
+                         attn_size=32, use_kernel_attention=True,
+                         decode_kernel="fused")
+    init_random_(model, 0, eos_bias=1.0)
+    model.to(cuda)
+    opt = Optimizer(model.parameters(), learning_rate=1e-2, grad_clip=1.0)
+    g = torch.Generator().manual_seed(2)
+    feats = [torch.randn(4, 5, 16, generator=g).to(cuda),
+             torch.randn(4, 1, 8, generator=g).to(cuda)]
+    vix = torch.tensor([0, 3, 5, 7], device=cuda)
+    noise = gumbel_noise(torch.Generator(cuda).manual_seed(3))
+    good = fused_cst_step(model, opt, feats, vix, noise, corpus, tables, 12,
+                          5, guard=True, decode_chunk=4)
+    assert good["bad_step"].item() == 0.0
+    before = ([p.detach().clone() for p in model.parameters()],
+              [{k: v.clone() for k, v in st.items()} for st in opt.state],
+              opt.count.clone())
+    reset_launch_counts()
+    bad = fused_cst_step(model, opt, [torch.full_like(f, float("nan"))
+                                      for f in feats], vix, noise, corpus,
+                         tables, 12, 5, guard=True, decode_chunk=4)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert bad["bad_step"].item() == 1.0
+    assert counts["fused_decode_cell"] == 2 * int(bad["rollout_steps"])
+    assert counts["fused_additive_attention"] == 12
+    assert all(torch.equal(a, p.detach())
+               for a, p in zip(before[0], model.parameters()))
+    assert all(torch.equal(a[k], st[k])
+               for a, st in zip(before[1], opt.state) for k in st)
+    assert torch.equal(before[2], opt.count) and opt.count.item() == 1.0

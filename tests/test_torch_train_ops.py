@@ -163,7 +163,9 @@ def test_reward_loss_gradient_skips_the_advantage():
 
 
 @pytest.mark.parametrize("optim,clip,rate,every", [
-    ("adam", 0.5, 0.5, 2), ("adam", 0.0, 1.0, 0), ("sgd", 0.3, 0.8, 3)])
+    ("adam", 0.5, 0.5, 2), ("adam", 0.0, 1.0, 0), ("sgd", 0.3, 0.8, 3),
+    ("adamax", 0.5, 0.5, 2), ("adamw", 0.5, 0.5, 2), ("rmsprop", 0.5, 0.5, 2),
+    ("adagrad", 0.5, 0.5, 2)])
 def test_optimizer_matches_optax_chain(optim, clip, rate, every):
     """Identical gradient sequences through the port's optimizer and the
     reference's optax chain (clip by global norm, staircase decay): the
@@ -196,8 +198,10 @@ def test_optimizer_matches_optax_chain(optim, clip, rate, every):
 
 
 def test_optimizer_refuses_unported_optimizers():
+    """Every optimizer of the reference's ``--optim`` is ported; a name
+    outside that set raises, listing the six."""
     with pytest.raises(ValueError, match="adamax"):
-        Optimizer([torch.nn.Parameter(torch.zeros(2))], optim="adamax")
+        Optimizer([torch.nn.Parameter(torch.zeros(2))], optim="lamb")
 
 
 def test_dropout_keeps_and_scales_like_flax():
