@@ -50,7 +50,25 @@ Phases, each printed as it runs; any failure exits non-zero:
    B = 1280 and K2 at the rollout batch B = 1344, against their plain
    versions within 1e-5, with times; K1's gradients through the kernel
    equal, bit for bit, the plain backward on the same inputs and
-   upstream gradients at B = 64.
+   upstream gradients at B = 64;
+8. bfloat16 storage and compute: K1 at B = 1, 8, 40, 1280 (its gradients
+   through the autograd Function at 1280 bit for bit the plain
+   backward's) and K2 at B = 1, 8, 40, 1344 in bfloat16 storage against
+   their plain versions on the card, compared in bfloat16 within one
+   bfloat16 ulp of each output's magnitude for K1 and two for K2 (its
+   float32 gate sums, in another order than cuBLAS's, flip a rounding
+   now and then, and ten roundings follow), both bitwise batch-invariant
+   at B = 40, with times next to bounds counted on bfloat16 bytes (K2's
+   weight stream 6.3 MB) and the bfloat16 tensor-core rate; greedy
+   serving of a bfloat16 model on K2 (``--use_bfloat16 1 --decode_kernel
+   fused``) and of the float32 model through the bfloat16 decode variant
+   with K1 (``--decode_kernel bf16 --pallas_attention 1``), each against
+   its offline decode; then bfloat16 training at full width with
+   ``--use_bfloat16 1 --device_feats 1`` on the phase-7 splits: 2 + 5 XE
+   steps (K1 bfloat16 forward and backward) and the fused CST step (1 +
+   3, K2 bfloat16 at 1344 rows), with ms/step, captions/s, the rollout,
+   reward and grad split, a profiled step and peak memory.  Every launch
+   of phase 8 must be a bfloat16 one.
 
 Each serving phase sets every kernel's launch count to 0 just before it
 and reads the counts just after; a kernel of the path launched other
@@ -61,11 +79,12 @@ iteration completed), K2 exactly 2 per executed step of the rollout it
 dispatched; the fused path builds no host reward.
 
 Output: phase lines as they run; then a JSON object with one entry per
-kernel (times at the serving batch B = 8, every measured batch under
-``by_batch``); then the card line (``nvidia-smi`` name and power limit);
-and last ``{"ok": true, "device": ...}``.  Without a CUDA device, or run
-outside a checkout of the repository, the script exits non-zero and
-prints no result.
+kernel and storage dtype (``storage``; times at the serving batch B = 8,
+every measured batch under ``by_batch``; launches of phases 4-7 for
+float32, of phase 8 for bfloat16); then the card line (``nvidia-smi``
+name and power limit); and last ``{"ok": true, "device": ...}``.
+Without a CUDA device, or run outside a checkout of the repository, the
+script exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -79,10 +98,12 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth and the
-# float32 rate outside the tensor cores.
+# H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth, the
+# float32 rate outside the tensor cores, and the dense bfloat16 rate of the
+# tensor cores (the least time the card could take for bfloat16 work).
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
 TOL = 1e-5
 # Written before every call of a cold-L2 timing: over twice the 50 MB L2.
 FLUSH_BYTES = 128 << 20
@@ -287,25 +308,32 @@ def timed(fn, flush, trace_graph: bool = False) -> dict:
     return out
 
 
-def bound_ms(n_bytes: float, n_ops: float):
+def bound_ms(n_bytes: float, n_ops: float,
+             ops_per_s: float = FP32_OPS_PER_S):
     by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    by_ops = n_ops / FP32_OPS_PER_S * 1e3
+    by_ops = n_ops / ops_per_s * 1e3
     return ((by_bytes, "bytes") if by_bytes >= by_ops
             else (by_ops, "operations"))
 
 
-def k1_bound(b: int):
-    n_bytes = 4 * (b * A + b * T_MEM * A + b * T_MEM * H + A + b * H
-                   + b * T_MEM)
-    return bound_ms(n_bytes, b * (4 * T_MEM * A + 5 * T_MEM + 2 * T_MEM * H))
+def k1_bound(b: int, elem: int = 4):
+    """K1's bound with q, proj_mem, memory, ctx and w in ``elem``-byte
+    storage (score_v float32)."""
+    n_bytes = (elem * (b * A + b * T_MEM * A + b * T_MEM * H + b * H
+                       + b * T_MEM) + 4 * A)
+    return bound_ms(n_bytes, b * (4 * T_MEM * A + 5 * T_MEM + 2 * T_MEM * H),
+                    FP32_OPS_PER_S if elem == 4 else BF16_OPS_PER_S)
 
 
-def k2_bound(b: int):
-    n_bytes = 4 * (b * (E + 2 * H + A) + b * T_MEM * (A + H) + A
-                   + (E + 2 * H) * 4 * H + 4 * H + 2 * b * H)
+def k2_bound(b: int, elem: int = 4):
+    """K2's bound with every operand but score_v in ``elem``-byte storage
+    (the gate weights 12.6 MB in float32, 6.3 MB in bfloat16)."""
+    n_bytes = (elem * (b * (E + 2 * H + A) + b * T_MEM * (A + H)
+                       + (E + 2 * H) * 4 * H + 4 * H + 2 * b * H) + 4 * A)
     n_ops = (b * (4 * T_MEM * A + 5 * T_MEM + 2 * T_MEM * H)
              + 2 * b * (E + 2 * H) * 4 * H + 10 * b * H)
-    return bound_ms(n_bytes, n_ops)
+    return bound_ms(n_bytes, n_ops,
+                    FP32_OPS_PER_S if elem == 4 else BF16_OPS_PER_S)
 
 
 def attention_inputs(b: int, gen):
@@ -432,14 +460,17 @@ def kernel_checks():
     from cst_captioning_tpu_torch.ops import _cuda
     from cst_captioning_tpu_torch.ops import decode_cell_kernel as k2
 
-    clusters = ctypes.c_int(0)
-    rc = _cuda.load("decode_cell", "decode_cell_gate_max_clusters")(
-        E, H, ctypes.byref(clusters))
-    _cuda.check(rc, "decode_cell_gate_max_clusters")
-    tiles = k2.gate_geometry(8, E, H)["column_tiles"]
-    print(f"K2 gate stage: the card holds {clusters.value} clusters of "
-          f"{k2.GATE_CLUSTER} blocks at once; the serving width has "
-          f"{tiles} (one wave: {clusters.value >= tiles})")
+    for elem, dtype in ((4, "float32"), (2, "bfloat16")):
+        clusters = ctypes.c_int(0)
+        rc = _cuda.load("decode_cell", "decode_cell_gate_max_clusters")(
+            E, H, elem, ctypes.byref(clusters))
+        _cuda.check(rc, "decode_cell_gate_max_clusters")
+        tiles = k2.gate_geometry(8, E, H, elem)["column_tiles"]
+        print(f"K2 gate stage ({dtype}): the card holds {clusters.value} "
+              f"clusters of {k2.GATE_CLUSTER} blocks at once; the serving "
+              f"width has {tiles} (one wave: {clusters.value >= tiles})")
+        if clusters.value < tiles:
+            fail(f"K2's {dtype} gate clusters do not fit in one wave")
 
     flush = torch.empty(FLUSH_BYTES // 4, device="cuda")
     gen = torch.Generator().manual_seed(1234)
@@ -461,8 +492,9 @@ def serve_phase(name: str, extra_args, n_requests: int):
     import torch
 
     from cst_captioning_tpu_torch import serve
-    from cst_captioning_tpu_torch.ops import launch_counts, \
-        reset_launch_counts
+    from cst_captioning_tpu_torch.ops import (launch_counts,
+                                              launch_counts_by_dtype,
+                                              reset_launch_counts)
     from cst_captioning_tpu_torch.serving.buckets import parse_buckets
     from cst_captioning_tpu_torch.serving.engine import ServingEngine
     from cst_captioning_tpu_torch.serving.server import CaptionServer
@@ -495,7 +527,7 @@ def serve_phase(name: str, extra_args, n_requests: int):
         lines=lines)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = launch_counts()
+    launches = {**launch_counts(), **launch_counts_by_dtype()}
     if rc != 0:
         fail(f"{name}: server exited {rc}")
     replies = [json.loads(ln) for ln in out.getvalue().splitlines()]
@@ -642,8 +674,9 @@ def timed_steps(trainer, n: int, check) -> list:
     iteration completed).  -> [(seconds, completed, launches)]."""
     import torch
 
-    from cst_captioning_tpu_torch.ops import launch_counts, \
-        reset_launch_counts
+    from cst_captioning_tpu_torch.ops import (launch_counts,
+                                              launch_counts_by_dtype,
+                                              reset_launch_counts)
 
     out = []
     for _ in range(n):
@@ -652,7 +685,7 @@ def timed_steps(trainer, n: int, check) -> list:
         done = trainer.iteration()
         torch.cuda.synchronize()
         sec = time.perf_counter() - t0
-        launches = launch_counts()
+        launches = {**launch_counts(), **launch_counts_by_dtype()}
         check(done, launches)
         out.append((sec, done, launches))
     return out
@@ -767,22 +800,12 @@ def nan_guard_check(cst) -> None:
         fail("the guarded fused step changed state on an all-NaN batch")
 
 
-def train_phase():
-    """Phase 7: XE -> WXE -> CST at full width through the train CLI's
-    parser and ``Trainer``; CST on the fused path (the default), then on
-    the host-reward path.  -> {kernel: launches in the phase}."""
-    import shutil
-
-    import numpy as np
-    import torch
-
+def train_splits():
+    """The synthetic train (MSR-VTT's 6513 videos x 20 captions, with
+    consensus scores) and val splits of phases 7 and 8, built once."""
     from cst_captioning_tpu_torch import train
-    from cst_captioning_tpu_torch.training import checkpoint
-    from cst_captioning_tpu_torch.training.trainer import (Trainer,
-                                                           build_splits)
+    from cst_captioning_tpu_torch.training.trainer import build_splits
 
-    ckpt_root = os.path.join(HERE, "checkpoints", "chip_smoke")
-    shutil.rmtree(ckpt_root, ignore_errors=True)
     t0 = time.perf_counter()
     splits = build_splits(train.parse_args(stage_args(
         "--use_consensus_weights", "1")))
@@ -795,6 +818,24 @@ def train_phase():
     if vocab != TRAIN_VOCAB:
         fail(f"the synthetic train split realised {vocab} vocabulary rows, "
              f"the reference's generator {TRAIN_VOCAB}")
+    return splits
+
+
+def train_phase(splits):
+    """Phase 7: XE -> WXE -> CST at full width through the train CLI's
+    parser and ``Trainer``; CST on the fused path (the default), then on
+    the host-reward path.  -> {kernel: launches in the phase}."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from cst_captioning_tpu_torch import train
+    from cst_captioning_tpu_torch.training import checkpoint
+    from cst_captioning_tpu_torch.training.trainer import Trainer
+
+    ckpt_root = os.path.join(HERE, "checkpoints", "chip_smoke")
+    shutil.rmtree(ckpt_root, ignore_errors=True)
     rows = TRAIN_BATCH * TRAIN_SEQ
     total = {"fused_additive_attention": 0, "fused_decode_cell": 0}
 
@@ -902,14 +943,15 @@ def train_phase():
               f"{k} {ms:.3f} {n:.0f}" for k, ms, n in prof["top"]))
     nan_guard_check(cst)
 
-    from cst_captioning_tpu_torch.ops import launch_counts, \
-        reset_launch_counts
+    from cst_captioning_tpu_torch.ops import (launch_counts,
+                                              launch_counts_by_dtype,
+                                              reset_launch_counts)
 
     reset_launch_counts()
     t0 = time.perf_counter()
     scores = cst.validate()
     torch.cuda.synchronize()
-    launches = launch_counts()
+    launches = {**launch_counts(), **launch_counts_by_dtype()}
     total["fused_decode_cell"] += launches["fused_decode_cell"]
     print(f"train validation: {splits[1].num_videos} videos, greedy through "
           f"K2 at B={TRAIN_BATCH}, {time.perf_counter() - t0:.3f} s, "
@@ -948,7 +990,7 @@ def train_phase():
     drained = host.drain()
     torch.cuda.synchronize()
     drain_s = time.perf_counter() - t0
-    launches = launch_counts()
+    launches = {**launch_counts(), **launch_counts_by_dtype()}
     teacher_forced(drained, launches)
     add([(drain_s, drained, launches)])
     ms = phase_medians(host_steps)
@@ -965,6 +1007,323 @@ def train_phase():
           f"(torch.cuda.max_memory_allocated)")
     del host
     shutil.rmtree(ckpt_root, ignore_errors=True)
+    return total
+
+
+def to_bf16(*tensors) -> tuple:
+    import torch
+
+    return tuple(t.to(torch.bfloat16) for t in tensors)
+
+
+def bf16_ulp(ref) -> float:
+    """One bfloat16 ulp at the magnitude of ``ref`` (its largest |value|):
+    the tolerance of a bfloat16 kernel against its plain version (float32
+    sums in another order before the rounding)."""
+    import math
+
+    m = ref.float().abs().max().item()
+    return 2.0 ** (math.floor(math.log2(m)) - 7) if m > 0 else 0.0
+
+
+def bf16_errors(got, want, ulps: int = 1):
+    """(max abs error, tolerance, within, share of outputs that differ)
+    over output pairs compared in bfloat16: each output within ``ulps``
+    ulps of its own magnitude.  K1 rounds once, at the end: one ulp.  K2's
+    float32 gate sums run in another order than cuBLAS's, so now and then
+    one rounds to the neighbouring bfloat16 value, and its gate chain
+    rounds ten times after them: where two such flips meet in one element
+    c' or h' moves by up to two ulps of the magnitude."""
+    import torch
+
+    errs = [((g.float() - w.float()).abs().max().item(), ulps * bf16_ulp(w))
+            for g, w in zip(got, want)]
+    differ = sum((g != w).sum().item() for g, w in zip(got, want)) / sum(
+        w.numel() for w in want)
+    return (max(e for e, _ in errs), max(t for _, t in errs),
+            all(g.dtype == w.dtype == torch.bfloat16
+                for g, w in zip(got, want))
+            and all(e <= t for e, t in errs), differ)
+
+
+def bf16_batch_invariant(fn, args, per_row: int) -> bool:
+    """A row's outputs have the same bits in a batch, alone, and at
+    another index of the batch."""
+    import torch
+
+    b = args[0].shape[0]
+    full = fn(*args)
+
+    def rows(idx):
+        return [a[idx].contiguous() if i < per_row else a
+                for i, a in enumerate(args)]
+
+    perm = torch.roll(torch.arange(b, device="cuda"), 17)
+    same = all(torch.equal(o[perm], m) for o, m in zip(full, fn(*rows(perm))))
+    for r in (0, b // 3, b - 1):
+        same &= all(torch.equal(o[r:r + 1], a)
+                    for o, a in zip(full, fn(*rows(slice(r, r + 1)))))
+    return same
+
+
+def check_k1_bf16(b: int, attn, gen, flush, backward: bool = False) -> dict:
+    """K1 in bfloat16 storage (score_v float32) at batch ``b`` against its
+    plain version, compared in bfloat16; with ``backward`` its gradients
+    through the autograd Function against the plain backward on the same
+    inputs and upstream gradients, bit for bit."""
+    import torch
+
+    from cst_captioning_tpu_torch.ops import attention_kernel as k1
+
+    q, pm, mem, v = attn
+    args = to_bf16(q, pm, mem) + (v,)
+    got = k1.fused_additive_attention(*args)
+    torch.cuda.synchronize()
+    err, tol, ok, differ = bf16_errors(got,
+                                       k1.additive_attention_plain(*args))
+    bound, by = k1_bound(b, 2)
+    k, p = (timed(lambda: k1.fused_additive_attention(*args), flush),
+            timed(lambda: k1.additive_attention_plain(*args), flush))
+    m = {"max_abs_err": err, "tol": tol, "ok": ok, "differ": differ,
+         "ms": k["ms"],
+         "ms_is": "profiler", "plain_ms": p["ms"], "bound_ms": bound,
+         "bound_by": by, "library_ms": None, "kernel": k, "plain": p}
+    if backward:
+        g_ctx = torch.randn(b, H, generator=gen).cuda().to(torch.bfloat16)
+        g_w = torch.randn(b, T_MEM, generator=gen).cuda().to(torch.bfloat16)
+        leaves = [t.clone().requires_grad_() for t in args]
+        torch.autograd.backward(list(k1.fused_additive_attention(*leaves)),
+                                [g_ctx, g_w])
+        want = k1.additive_attention_backward(*args, g_ctx, g_w)
+        m["grad_bitwise"] = all(
+            a.grad.dtype == a.dtype and torch.equal(a.grad, g)
+            for a, g in zip(leaves, want))
+        bwd = timed(lambda: k1.additive_attention_backward(
+            *args, g_ctx, g_w), flush)
+        m.update({"backward_ms": bwd["ms"],
+                  "backward_graph_ms": bwd["graph_ms"]})
+    return m
+
+
+def check_k2_bf16(b: int, attn, gen, flush) -> dict:
+    """K2 in bfloat16 storage at batch ``b`` (weights and state bfloat16,
+    score_v float32) against its plain version, compared in bfloat16;
+    times next to its bound and to ``torch.addmm`` of its gate product in
+    bfloat16."""
+    import torch
+
+    from cst_captioning_tpu_torch.ops import decode_cell_kernel as k2
+
+    q, pm, mem, v = attn
+    x = torch.randn(b, E, generator=gen).cuda()
+    c = torch.randn(b, H, generator=gen).cuda()
+    h = torch.tanh(torch.randn(b, H, generator=gen)).cuda()
+    wg = (torch.randn(E + 2 * H, 4 * H, generator=gen)
+          / (E + H) ** 0.5).cuda()
+    bias = (0.1 * torch.randn(4 * H, generator=gen)).cuda()
+    args = to_bf16(x, c, h, q, pm, mem) + (v,) + to_bf16(wg, bias)
+    got = k2.fused_decode_cell(*args)
+    torch.cuda.synchronize()
+    err, tol, ok, differ = bf16_errors(got, k2.decode_cell_plain(*args),
+                                       ulps=2)
+    bound, by = k2_bound(b, 2)
+    xin = torch.cat([args[0], *to_bf16(torch.randn(b, H, device="cuda")),
+                     args[2]], dim=-1)
+    k, p, lib = (timed(lambda: k2.fused_decode_cell(*args), flush,
+                       trace_graph=True),
+                 timed(lambda: k2.decode_cell_plain(*args), flush),
+                 timed(lambda: torch.addmm(args[8], xin, args[7]), flush))
+    return {"max_abs_err": err, "tol": tol, "ok": ok, "differ": differ,
+            "ms": k["graph_ms"],
+            "ms_is": "graph_ms", "plain_ms": p["graph_ms"],
+            "bound_ms": bound, "bound_by": by,
+            "library_ms": lib["graph_ms"],
+            "library_call": "torch.addmm (bfloat16 gate product only)",
+            "kernel": k, "plain": p, "library": lib,
+            "batch_invariant": (bf16_batch_invariant(
+                k2.fused_decode_cell, args, 6) if b == 40 else None)}
+
+
+def report_bf16(name: str, b: int, m: dict) -> None:
+    """Print one bfloat16 kernel check; fail on any disagreement."""
+    extra = "".join(f" {key}={m[key]}" for key in
+                    ("grad_bitwise", "batch_invariant", "backward_ms",
+                     "backward_graph_ms") if m.get(key) is not None)
+    print(f"kernel {name} bfloat16 B={b}: max_abs_err={m['max_abs_err']:.3e}"
+          f" (tolerance, in bfloat16 ulps of the output's magnitude: "
+          f"{m['tol']:.3e}; outputs that differ: {m['differ']:.3e}) "
+          f"ms={m['ms']:.6f} ({m['ms_is']}) plain_ms={m['plain_ms']:.6f} "
+          f"bound_ms={m['bound_ms']:.6f} ({m['bound_by']}) "
+          f"library_ms={m['library_ms']}{extra}")
+    for part in ("kernel", "plain", "library"):
+        if part in m:
+            print(f"kernel {name} bfloat16 B={b} {part}: " + ", ".join(
+                f"{key}={val:.6f}" for key, val in m[part].items()))
+    if not m["ok"] or m.get("grad_bitwise") is False \
+            or m.get("batch_invariant") is False:
+        fail(f"{name} in bfloat16 at B={b} disagrees with its plain version: "
+             f"{m['max_abs_err']:.3e} against {m['tol']:.3e}, "
+             f"gradients bitwise {m.get('grad_bitwise')}, batch invariant "
+             f"{m.get('batch_invariant')}")
+
+
+def bf16_kernel_checks() -> dict:
+    """Phase 8a: K1 at B = 1, 8, 40, 1280 (its gradients at 1280) and K2 at
+    B = 1, 8, 40, 1344 in bfloat16 storage against their plain versions;
+    both bitwise batch-invariant at B = 40.  -> {kernel: {batch: dict}}."""
+    import torch
+
+    from cst_captioning_tpu_torch.ops import attention_kernel as k1
+
+    flush = torch.empty(FLUSH_BYTES // 4, device="cuda")
+    gen = torch.Generator().manual_seed(5678)
+    res = {"K1": {}, "K2": {}}
+    for b1, b2 in ((1, 1), (8, 8), (40, 40), (TRAIN_ROWS, ROLLOUT_ROWS)):
+        res["K1"][b1] = check_k1_bf16(b1, attention_inputs(b1, gen), gen,
+                                      flush, backward=b1 == TRAIN_ROWS)
+        if b1 == 40:
+            q, pm, mem, v = attention_inputs(40, gen)
+            res["K1"][b1]["batch_invariant"] = bf16_batch_invariant(
+                k1.fused_additive_attention,
+                to_bf16(q, pm, mem) + (v,), 3)
+        report_bf16("K1", b1, res["K1"][b1])
+        res["K2"][b2] = check_k2_bf16(b2, attention_inputs(b2, gen), gen,
+                                      flush)
+        report_bf16("K2", b2, res["K2"][b2])
+    return res
+
+
+def bf16_serve_phases() -> dict:
+    """Phase 8b: greedy serving of a bfloat16 model on K2 in bfloat16
+    storage (``--use_bfloat16 1 --decode_kernel fused``), then of the
+    float32 model through the bfloat16 decode variant with its attention
+    on K1 in bfloat16 (``--decode_kernel bf16 --pallas_attention 1``);
+    each against the offline greedy decode of the same model and kernel,
+    every launch a bfloat16 one.  -> {counter: launches}."""
+    total = {}
+    for name, args, counter, per_step in (
+            ("greedy-fused-bf16", ["--use_bfloat16", "1", "--decode_kernel",
+                                   "fused"], "fused_decode_cell", 2),
+            ("greedy-bf16-variant-k1", ["--decode_kernel", "bf16",
+                                        "--pallas_attention", "1"],
+             "fused_additive_attention", 1)):
+        model, vocab, feats_for, caps, stats, launches, _ = serve_phase(
+            name, args + ["--beam_size", "1"], 16)
+        check_launches(name, counter, launches[f"{counter}/bfloat16"],
+                       stats["decode_steps"], per_step)
+        if launches[f"{counter}/float32"] or launches[counter] != \
+                launches[f"{counter}/bfloat16"]:
+            fail(f"{name}: float32 launches in a bfloat16 path: {launches}")
+        check_against_offline(name, caps, offline_captions(
+            model, vocab, feats_for, 16, 1))
+        for key, n in launches.items():
+            total[key] = total.get(key, 0) + n
+    return total
+
+
+def bf16_train_phase(splits) -> dict:
+    """Phase 8c: bfloat16 training at full width (64 x 20, V = 7752) with
+    ``--use_bfloat16 1 --device_feats 1`` (the features resident on the
+    card in bfloat16): XE (2 warm-up + 5 timed steps) with K1 in bfloat16
+    forward and backward, then the fused CST step (1 warm-up + 3 timed)
+    with K2 in bfloat16 at 1344 rows.  Parameters and optimizer state stay
+    float32, every kernel launch is a bfloat16 one.  -> {counter:
+    launches}."""
+    import numpy as np
+    import torch
+
+    from cst_captioning_tpu_torch import train
+    from cst_captioning_tpu_torch.training.trainer import Trainer
+
+    rows = TRAIN_BATCH * TRAIN_SEQ
+    total = {}
+
+    def teacher_forced(done, launches):
+        n = launches["fused_additive_attention/bfloat16"]
+        if n != MAX_LEN * len(done) or launches["fused_additive_attention"] \
+                != n or launches["fused_decode_cell/float32"]:
+            fail(f"bfloat16 training: launches {launches} in {len(done)} "
+                 f"teacher-forced steps ({MAX_LEN} bfloat16 K1 a step)")
+
+    def add(steps):
+        for _, _, launches in steps:
+            for key, n in launches.items():
+                total[key] = total.get(key, 0) + n
+
+    bf16_args = ("--use_bfloat16", "1", "--device_feats", "1")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    xe = Trainer(train.parse_args(stage_args(
+        *bf16_args, "--checkpoint_path",
+        os.path.join(HERE, "checkpoints", "chip_smoke_bf16"))), splits)
+    table_gb = sum(t.numel() * t.element_size() for t in xe.feat_tables) / 1e9
+    print(f"train bf16: trainer built in {time.perf_counter() - t0:.1f} s; "
+          f"compute {xe.model.dtype}, features {xe.feat_dtype} resident on "
+          f"the card ({table_gb:.3f} GB); parameters "
+          f"{sorted({str(p.dtype) for p in xe.model.parameters()})}")
+    if xe.model.dtype != torch.bfloat16 or table_gb > 0.9 or any(
+            p.dtype != torch.float32 for p in xe.model.parameters()):
+        fail("bfloat16 training: model, parameters or feature table in "
+             "the wrong dtype")
+    add(timed_steps(xe, 2, teacher_forced))
+    xe_steps = timed_steps(xe, 5, teacher_forced)
+    add(xe_steps)
+    xe_ms = report_stage("XE bf16", xe_steps, rows)
+    first, last = (float(xe_steps[i][1][0][1]["loss"]) for i in (0, -1))
+    if not last < first:
+        fail("bfloat16 XE loss of the last timed step is not below the "
+             "first")
+    if any(st[k].dtype != torch.float32 for st in xe.optimizer.state
+           for k in st):
+        fail("bfloat16 training: optimizer state not float32")
+    cst = Trainer(train.parse_args(stage_args(
+        *bf16_args, "--use_rl", "1", "--rl_baseline", "greedy",
+        "--learning_rate", "2e-5", "--checkpoint_path",
+        os.path.join(HERE, "checkpoints", "chip_smoke_bf16_cst"))), splits)
+    cst.model.load_state_dict(xe.model.state_dict())
+    del xe
+
+    def fused_step(done, launches):
+        teacher_forced(done, launches)
+        (_, m), = done
+        if launches["fused_decode_cell/bfloat16"] != \
+                2 * float(m["rollout_steps"]):
+            fail(f"bfloat16 CST: K2 launched {launches} in a rollout of "
+                 f"{float(m['rollout_steps'])} steps (2 bfloat16 a step)")
+        if not np.isfinite(float(m["reward"])):
+            fail(f"bfloat16 CST reward not finite: {float(m['reward'])}")
+
+    before = [p.detach().clone() for p in cst.model.parameters()]
+    add(timed_steps(cst, 1, fused_step))
+    cst_steps = timed_steps(cst, 3, fused_step)
+    add(cst_steps)
+    cst_ms = report_stage("CST fused bf16", cst_steps, rows)
+    metrics = [m for _, done, _ in cst_steps for _, m in done]
+    changed = sum(not torch.equal(a, p.detach())
+                  for a, p in zip(before, cst.model.parameters()))
+    ms = phase_medians(cst_steps)
+    print(f"train CST fused bf16 phases (median ms, CUDA events): rollout "
+          f"{ms['rollout']:.3f} ({ROLLOUT_ROWS} rows, steps "
+          f"{[float(m['rollout_steps']) for m in metrics]}"
+          f"), on-device reward {ms['reward']:.3f}, grad {ms['grad']:.3f}; "
+          f"step {cst_ms * 1e3:.3f} ms = {rows / cst_ms:.1f} captions/s "
+          f"(XE {xe_ms * 1e3:.3f} ms = {rows / xe_ms:.1f} captions/s); "
+          f"reward {[round(float(m['reward']), 6) for m in metrics]}; "
+          f"{changed}/{len(before)} parameter tensors changed")
+    if changed == 0:
+        fail("bfloat16 CST steps left every parameter unchanged")
+    prof = device_profile(cst.iteration, iters=1)
+    print(f"train CST fused bf16: profiled step: device time "
+          f"{prof['ms']:.3f} ms (summed), busy {prof['busy_ms']:.3f} ms of "
+          f"{prof['wall_ms']:.3f} ms wall = busy share "
+          f"{prof['busy_ms'] / prof['wall_ms']:.3f}; top kernels (name, ms, "
+          "launches): " + "; ".join(f"{k} {ms_:.3f} {n:.0f}"
+                                    for k, ms_, n in prof["top"]))
+    print(f"train bf16 peak device memory: "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB "
+          f"(torch.cuda.max_memory_allocated)")
+    del cst
     return total
 
 
@@ -1009,10 +1368,10 @@ def main() -> int:
                           offline_captions(model, vocab, feats_for, 16, 1))
 
     # Phase 5: beam 5, K2.
-    model, vocab, feats_for, beam_caps, b_stats, b_launch, _ = \
+    model, vocab, feats_for, beam_caps, b_stats, beam_launch, _ = \
         serve_phase("beam5-fused", ["--decode_kernel", "fused",
                                     "--beam_size", "5"], 8)
-    check_launches("beam5-fused", "K2", b_launch["fused_decode_cell"],
+    check_launches("beam5-fused", "K2", beam_launch["fused_decode_cell"],
                    b_stats["decode_steps"], 2)
     check_against_offline("beam5-fused", beam_caps,
                           offline_captions(model, vocab, feats_for, 8, 5))
@@ -1032,16 +1391,30 @@ def main() -> int:
           f"to greedy-fused (the two cells differ by float32 rounding)")
 
     # Phase 7: training, K1 and K2 at the training batches first.
+    splits = train_splits()
     training_kernel_checks(measured)
-    t_launch = train_phase()
+    t_launch = train_phase(splits)
 
-    # The kernels line: launches from the serving and training phases;
-    # times at B=8, the greedy serving batch (8-slot bucket).
-    launches = {"K1": r_launch["fused_additive_attention"]
-                + t_launch["fused_additive_attention"],
-                "K2": g_launch["fused_decode_cell"]
-                + b_launch["fused_decode_cell"]
-                + t_launch["fused_decode_cell"]}
+    # Phase 8: bfloat16 storage and compute.
+    bf16_measured = bf16_kernel_checks()
+    s_launch = bf16_serve_phases()
+    bt_launch = bf16_train_phase(splits)
+
+    # The kernels line: one entry per kernel and storage dtype.  Launches:
+    # float32 from phases 4-7, bfloat16 from phase 8; times at B=8, the
+    # greedy serving batch (8-slot bucket), every measured batch under
+    # ``by_batch``.
+    launches = {
+        ("K1", "float32"): r_launch["fused_additive_attention"]
+        + t_launch["fused_additive_attention"],
+        ("K2", "float32"): g_launch["fused_decode_cell"]
+        + beam_launch["fused_decode_cell"]
+        + t_launch["fused_decode_cell"],
+        ("K1", "bfloat16"): s_launch["fused_additive_attention/bfloat16"]
+        + bt_launch["fused_additive_attention/bfloat16"],
+        ("K2", "bfloat16"): s_launch["fused_decode_cell/bfloat16"]
+        + bt_launch["fused_decode_cell/bfloat16"],
+    }
     meta = {
         "K1": ("fused_additive_attention", "cst_captioning_tpu_torch/csrc/"
                "attention.cu", "cst_captioning_tpu/ops/pallas_attention.py:86"),
@@ -1050,13 +1423,15 @@ def main() -> int:
                "cst_captioning_tpu/ops/pallas_decode_cell.py:139"),
     }
     kernels = []
-    for key, (name, source, replaces) in meta.items():
-        m = measured[key][8]
+    for (key, dtype), n in launches.items():
+        name, source, replaces = meta[key]
+        res = measured if dtype == "float32" else bf16_measured
+        m = res[key][8]
         kernels.append({
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[key],
-            "max_abs_err": max(measured[key][b]["max_abs_err"]
-                               for b in measured[key]),
+            "name": name if dtype == "float32" else f"{name}_bf16",
+            "route": "cuda", "source": source, "replaces": replaces,
+            "storage": dtype, "launches": n,
+            "max_abs_err": max(res[key][b]["max_abs_err"] for b in res[key]),
             "ms": m["ms"], "plain_ms": m["plain_ms"],
             "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
             "library_ms": m["library_ms"], "batch": 8, "ms_is": m["ms_is"],
@@ -1064,7 +1439,7 @@ def main() -> int:
             "cold_ms": m["kernel"]["cold_ms"],
             "call_ms": m["kernel"]["call_ms"],
             "host_us": m["kernel"]["host_us"],
-            "by_batch": {str(b): measured[key][b] for b in measured[key]}})
+            "by_batch": {str(b): res[key][b] for b in res[key]}})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -11,9 +11,12 @@ never JAX, Flax or the reference package.  Entry points run on the CUDA
 device unless the caller asks for the CPU (``device="cpu"``); without a
 GPU they raise instead of quietly running on the CPU.
 
-The slice is float32 throughout.  TF32 is switched off for matmuls and
-cuDNN at import so the card's float32 products are full float32, as the
-JAX CPU reference is.
+The model computes in float32, or in bfloat16 over float32 parameters
+(``--use_bfloat16``, ``precision.py``).  TF32 is switched off for matmuls
+and cuDNN at import so the card's float32 products are full float32, as
+the JAX CPU reference is; and cuBLAS may not reduce split-K partial sums
+of a bfloat16 product in bfloat16 (its default allows it), so a bfloat16
+product is a float32 sum rounded once, as XLA computes it.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import torch
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 def default_device(device: Optional[Union[str, torch.device]] = None

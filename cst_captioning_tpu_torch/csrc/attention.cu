@@ -16,6 +16,12 @@
 // for the context), the blocks trade the T scores through distributed
 // shared memory, and each writes its quarter of ctx and its share of w.
 // The (T, A) tanh tensor and the scores never reach device memory.
+//
+// Two storage types, one template (attention.cuh): float32, and bfloat16
+// as the reference kernel runs under --use_bfloat16 (q, proj_mem, memory
+// read and ctx, w written in bfloat16; v float32; float32 math).  In
+// bfloat16 the row's bytes halve (~2.4 MB at B = 40) and the kernel stays
+// bound by device-memory bytes, or at 1-40 rows by its latency.
 #include "attention.cuh"
 
 extern "C" int additive_attention_forward(const float* q, const float* pm,
@@ -23,6 +29,17 @@ extern "C" int additive_attention_forward(const float* q, const float* pm,
                                           float* ctx, float* w, int B, int T,
                                           int A, int H, int smem_bytes,
                                           void* stream) {
-  return (int)launch_attention(q, pm, mem, v, ctx, w, B, T, A, H,
-                               (size_t)smem_bytes, (cudaStream_t)stream);
+  return (int)launch_attention<float>(q, pm, mem, v, ctx, w, B, T, A, H,
+                                      (size_t)smem_bytes,
+                                      (cudaStream_t)stream);
+}
+
+extern "C" int additive_attention_forward_bf16(
+    const __nv_bfloat16* q, const __nv_bfloat16* pm,
+    const __nv_bfloat16* mem, const float* v, __nv_bfloat16* ctx,
+    __nv_bfloat16* w, int B, int T, int A, int H, int smem_bytes,
+    void* stream) {
+  return (int)launch_attention<__nv_bfloat16>(q, pm, mem, v, ctx, w, B, T, A,
+                                              H, (size_t)smem_bytes,
+                                              (cudaStream_t)stream);
 }

@@ -7,6 +7,13 @@
 // all in float32, as elementwise work plus warp reductions (the TPU kernel
 // deliberately avoided matrix-unit dots for the same sums).
 //
+// Storage type S: float, or __nv_bfloat16 (the reference's bf16 storage
+// under --use_bfloat16).  q, proj_mem and memory are read, and ctx and w
+// written, in S; v stays float32; every sum is float32.  A 16-byte copy
+// carries 16 / sizeof(S) values (4 or 8), so bfloat16 needs A % 8 == 0 and
+// H % (8 * kAttnCluster) == 0.  The float32 instantiation is the float32
+// kernel op for op.
+//
 // Design.  A row is latency-bound (59 KB of proj_mem and 59 KB of memory
 // at T = 29, A = H = 512), so it is split over a cluster of kAttnCluster
 // blocks.  Block j of a row's cluster owns a contiguous share of the time
@@ -27,11 +34,35 @@
 #include <cfloat>
 #include <cooperative_groups.h>
 #include <cstdint>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mutex>
 
 constexpr int kAttnCluster = 4;    // blocks per batch row
 constexpr int kAttnThreads = 256;  // 8 warps: one time step each
+
+// A storage value as float32, and a float32 value in storage type S
+// (bfloat16: round to nearest even).
+__device__ __forceinline__ float load_f(float x) { return x; }
+__device__ __forceinline__ float load_f(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+template <typename S>
+__device__ __forceinline__ S store_as(float x);
+template <>
+__device__ __forceinline__ float store_as<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 store_as<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// Values of storage type S that one 16-byte copy carries.
+template <typename S>
+__host__ __device__ constexpr int per_copy() {
+  return 16 / (int)sizeof(S);
+}
 
 // Start of part j when n items are cut into `parts` contiguous parts
 // (sizes differ by at most one).  The wrappers' geometry functions use the
@@ -110,23 +141,27 @@ static inline cudaError_t opt_in_shared(const void* kernel, size_t bytes,
   return err;
 }
 
-// Shared memory of one attention block: q and v (A each), its proj_mem
-// rows (at most ceil(T / kAttnCluster) of A), its memory columns
-// (T x H / kAttnCluster) and the T scores, then weights.
+// Shared memory of one attention block: q (A, in S), v (A, float32), its
+// proj_mem rows (at most ceil(T / kAttnCluster) of A) and its memory
+// columns (T x H / kAttnCluster), both in S, and the T scores, then
+// weights (float32).
+template <typename S>
 inline size_t attention_smem_bytes(int T, int A, int H) {
   const int ts_max = (T + kAttnCluster - 1) / kAttnCluster;
-  return (size_t)(2 * A + ts_max * A + T * (H / kAttnCluster) + T) *
-         sizeof(float);
+  return (size_t)(A + ts_max * A + T * (H / kAttnCluster)) * sizeof(S) +
+         (size_t)(A + T) * sizeof(float);
 }
 
-// One row.  q (A,), pm (T, A), mem (T, H), v (A,) -> ctx (H,), w_out (T,)
-// or nullptr.  Needs A % 4 == 0, H % (4 * kAttnCluster) == 0 and 16-byte
-// aligned q, pm, mem, v (the wrappers check).
+// One row.  q (A,), pm (T, A), mem (T, H) in S, v (A,) float32 -> ctx
+// (H,), w_out (T,) or nullptr, in S.  Needs A % per_copy<S>() == 0, H %
+// (per_copy<S>() * kAttnCluster) == 0 and 16-byte aligned q, pm, mem, v
+// (the wrappers check).
+template <typename S>
 __device__ __forceinline__ void attend_row(
-    const float* __restrict__ q, const float* __restrict__ pm,
-    const float* __restrict__ mem, const float* __restrict__ v,
-    float* __restrict__ ctx, float* __restrict__ w_out, float* smem, int T,
-    int A, int H) {
+    const S* __restrict__ q, const S* __restrict__ pm,
+    const S* __restrict__ mem, const float* __restrict__ v,
+    S* __restrict__ ctx, S* __restrict__ w_out, float* smem, int T, int A,
+    int H) {
   namespace cg = cooperative_groups;
   cg::cluster_group cluster = cg::this_cluster();
   const int j = (int)cluster.block_rank();
@@ -135,32 +170,35 @@ __device__ __forceinline__ void attend_row(
   const int ts_max = (T + kAttnCluster - 1) / kAttnCluster;
   const int hs = H / kAttnCluster;
   const int h_lo = j * hs;
-  float* qs = smem;                 // (A,)
-  float* vs = qs + A;               // (A,)
-  float* pms = vs + A;              // (ts_max, A): rows t_lo .. t_hi
-  float* mems = pms + ts_max * A;   // (T, hs): columns h_lo .. h_lo + hs
-  float* wts = mems + T * hs;       // (T,): every block's scores, weights
+  constexpr int kPer = per_copy<S>();
+  S* qs = reinterpret_cast<S*>(smem);             // (A,)
+  float* vs = reinterpret_cast<float*>(qs + A);   // (A,)
+  S* pms = reinterpret_cast<S*>(vs + A);  // (ts_max, A): rows t_lo .. t_hi
+  S* mems = pms + ts_max * A;    // (T, hs): columns h_lo .. h_lo + hs
+  float* wts = reinterpret_cast<float*>(mems + T * hs);  // (T,): scores
 
   // Group 0: q, v and this block's proj_mem rows (contiguous in pm).
-  const int a4 = A / 4;
-  const int n0 = (2 + t_hi - t_lo) * a4;
+  const int aq = A / kPer;  // 16-byte copies of q, and of a proj_mem row
+  const int a4 = A / 4;     // of v
+  const int n0 = aq + a4 + (t_hi - t_lo) * aq;
   for (int i = threadIdx.x; i < n0; i += blockDim.x) {
-    if (i < a4) {
-      cp_async16(qs + 4 * i, q + 4 * i);
-    } else if (i < 2 * a4) {
-      cp_async16(vs + 4 * (i - a4), v + 4 * (i - a4));
+    if (i < aq) {
+      cp_async16(qs + kPer * i, q + kPer * i);
+    } else if (i < aq + a4) {
+      cp_async16(vs + 4 * (i - aq), v + 4 * (i - aq));
     } else {
-      const int k = i - 2 * a4;
-      cp_async16(pms + 4 * k, pm + (size_t)t_lo * A + 4 * k);
+      const int k = i - aq - a4;
+      cp_async16(pms + kPer * k, pm + (size_t)t_lo * A + kPer * k);
     }
   }
   cp_async_commit();
   // Group 1: this block's columns of memory, every time step.
-  const int h4 = hs / 4;
+  const int h4 = hs / kPer;
   for (int i = threadIdx.x; i < T * h4; i += blockDim.x) {
     const int t = i / h4;
     const int c = i - t * h4;
-    cp_async16(mems + t * hs + 4 * c, mem + (size_t)t * H + h_lo + 4 * c);
+    cp_async16(mems + t * hs + kPer * c,
+               mem + (size_t)t * H + h_lo + kPer * c);
   }
   cp_async_commit();
   griddep_launch_dependents();
@@ -173,10 +211,11 @@ __device__ __forceinline__ void attend_row(
   const int warp = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5;
   for (int t = t_lo + warp; t < t_hi; t += nwarps) {
-    const float* row = pms + (t - t_lo) * A;
+    const S* row = pms + (t - t_lo) * A;
     float s = 0.f;
 #pragma unroll 4
-    for (int a = lane; a < A; a += 32) s += tanhf(row[a] + qs[a]) * vs[a];
+    for (int a = lane; a < A; a += 32)
+      s += tanhf(load_f(row[a]) + load_f(qs[a])) * vs[a];
     s = warp_sum(s);
     if (lane < kAttnCluster) *cluster.map_shared_rank(wts + t, lane) = s;
   }
@@ -198,7 +237,7 @@ __device__ __forceinline__ void attend_row(
     for (int t = lane; t < T; t += 32) {
       const float wt = wts[t] / sum;
       wts[t] = wt;
-      if (w_out != nullptr && t >= t_lo && t < t_hi) w_out[t] = wt;
+      if (w_out != nullptr && t >= t_lo && t < t_hi) w_out[t] = store_as<S>(wt);
     }
   }
   cp_async_wait<0>();
@@ -208,38 +247,38 @@ __device__ __forceinline__ void attend_row(
   for (int h = threadIdx.x; h < hs; h += blockDim.x) {
     float acc = 0.f;
 #pragma unroll 8
-    for (int t = 0; t < T; ++t) acc += wts[t] * mems[t * hs + h];
-    ctx[h_lo + h] = acc;
+    for (int t = 0; t < T; ++t) acc += wts[t] * load_f(mems[t * hs + h]);
+    ctx[h_lo + h] = store_as<S>(acc);
   }
 }
 
 // Grid (kAttnCluster, B): one cluster per batch row.  w_out may be null.
+template <typename S>
 __global__ void __cluster_dims__(kAttnCluster, 1, 1)
     __launch_bounds__(kAttnThreads)
-    attention_kernel(const float* __restrict__ q,
-                     const float* __restrict__ pm,
-                     const float* __restrict__ mem,
-                     const float* __restrict__ v, float* __restrict__ ctx,
-                     float* __restrict__ w_out, int T, int A, int H) {
+    attention_kernel(const S* __restrict__ q, const S* __restrict__ pm,
+                     const S* __restrict__ mem, const float* __restrict__ v,
+                     S* __restrict__ ctx, S* __restrict__ w_out, int T, int A,
+                     int H) {
   extern __shared__ __align__(16) float smem[];
   const size_t b = blockIdx.y;
-  attend_row(q + b * A, pm + b * T * A, mem + b * T * H, v, ctx + b * H,
-             w_out == nullptr ? nullptr : w_out + b * T, smem, T, A, H);
+  attend_row<S>(q + b * A, pm + b * T * A, mem + b * T * H, v, ctx + b * H,
+                w_out == nullptr ? nullptr : w_out + b * T, smem, T, A, H);
 }
 
 // Launch the attention on `stream`.  smem_bytes is what the wrapper's
 // geometry computed; a disagreement with attention_smem_bytes is refused.
+template <typename S>
 static inline cudaError_t launch_attention(
-    const float* q, const float* pm, const float* mem, const float* v,
-    float* ctx, float* w_out, int B, int T, int A, int H, size_t smem_bytes,
-    cudaStream_t stream) {
-  if (smem_bytes != attention_smem_bytes(T, A, H))
+    const S* q, const S* pm, const S* mem, const float* v, S* ctx, S* w_out,
+    int B, int T, int A, int H, size_t smem_bytes, cudaStream_t stream) {
+  if (smem_bytes != attention_smem_bytes<S>(T, A, H))
     return cudaErrorInvalidValue;
   static size_t opted = 0;
   const cudaError_t err =
-      opt_in_shared((const void*)attention_kernel, smem_bytes, &opted);
+      opt_in_shared((const void*)attention_kernel<S>, smem_bytes, &opted);
   if (err != cudaSuccess) return err;
-  attention_kernel<<<dim3(kAttnCluster, B), kAttnThreads, smem_bytes,
-                     stream>>>(q, pm, mem, v, ctx, w_out, T, A, H);
+  attention_kernel<S><<<dim3(kAttnCluster, B), kAttnThreads, smem_bytes,
+                        stream>>>(q, pm, mem, v, ctx, w_out, T, A, H);
   return cudaGetLastError();
 }

@@ -9,14 +9,19 @@ has enough captions), and the WXE weights of the drawn rows ride along.
 ``iter_eval`` is one ordered pass whose last batch wraps around to the
 first videos (callers dedupe by video id).  No prefetch threads, sharding
 or fault hooks.
+
+``host_feats`` is the cast on the host before the copy
+(``--bf16_feats``): a batch's features as host tensors in the dtype they
+travel and reside in.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Iterator, List, Optional
+from typing import Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from .synthetic import Split
 
@@ -31,6 +36,23 @@ class Batch:
     weights: np.ndarray                # (B*S,) float32; 1.0 = XE
     video_ids: List[str]               # B
     video_ix: np.ndarray               # (B,) split indices
+
+
+def feat_dtype(use_bfloat16, bf16_feats) -> torch.dtype:
+    """The dtype features travel and reside in: bfloat16 when
+    ``bf16_feats`` is true, or is None and ``use_bfloat16`` is true;
+    float32 otherwise.  One resolution for the streamed batches and the
+    device-resident table."""
+    bf16 = use_bfloat16 if bf16_feats is None else bf16_feats
+    return torch.bfloat16 if bf16 else torch.float32
+
+
+def host_feats(feats: Sequence[np.ndarray],
+               dtype: torch.dtype) -> List[torch.Tensor]:
+    """Features as host tensors in ``dtype``, cast on the host (before
+    the copy to the device: bfloat16 halves the bytes copied).  Labels
+    and weights are not features and keep their dtypes."""
+    return [torch.from_numpy(np.asarray(f)).to(dtype) for f in feats]
 
 
 class CaptionLoader:

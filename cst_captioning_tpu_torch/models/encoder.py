@@ -10,6 +10,10 @@ initialises the decoder state.
 With ``train=True`` and ``drop_prob`` > 0, dropout applies at the
 reference's sites: ``pooled`` first, then ``memory``.  Masks come from the
 ``torch.Generator`` the caller passes (``dropout``).
+
+``dtype`` is the compute dtype (``precision.py``): the features
+are cast to it first, as the reference casts them, and every Dense
+computes in it over the float32 parameters.
 """
 
 from __future__ import annotations
@@ -18,6 +22,8 @@ from typing import Optional, Sequence
 
 import torch
 from torch import nn
+
+from ..precision import compute_dtype, dense
 
 
 def dropout(x: torch.Tensor, p: float,
@@ -36,11 +42,12 @@ class FeatureEncoder(nn.Module):
     """Returns (memory (B, sum_m T_m, H), pooled (B, H))."""
 
     def __init__(self, feat_dims: Sequence[int], hidden_size: int,
-                 drop_prob: float = 0.0):
+                 drop_prob: float = 0.0, dtype: torch.dtype = torch.float32):
         super().__init__()
         if len(feat_dims) == 0:
             raise ValueError("need at least one feature modality")
         self.drop_prob = drop_prob
+        self.dtype = compute_dtype(dtype)
         self.embed = nn.ModuleList(nn.Linear(int(d), hidden_size)
                                    for d in feat_dims)
         self.fuse = nn.Linear(len(feat_dims) * hidden_size, hidden_size)
@@ -55,11 +62,13 @@ class FeatureEncoder(nn.Module):
             if x.ndim != 3:
                 raise ValueError(
                     f"modality {m}: expected (B, T, D), got {tuple(x.shape)}")
-            h = torch.relu(embed(x.float()))
+            h = torch.relu(dense(x.to(self.dtype), embed.weight, embed.bias,
+                                 self.dtype))
             projected.append(h)                        # (B, T_m, H)
             pooled.append(h.mean(dim=1))               # (B, H)
         memory = torch.cat(projected, dim=1)
-        fused = torch.tanh(self.fuse(torch.cat(pooled, dim=-1)))
+        fused = torch.tanh(dense(torch.cat(pooled, dim=-1), self.fuse.weight,
+                                 self.fuse.bias, self.dtype))
         if train and self.drop_prob > 0:
             fused = dropout(fused, self.drop_prob, generator)
             memory = dropout(memory, self.drop_prob, generator)

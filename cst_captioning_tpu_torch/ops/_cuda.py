@@ -36,14 +36,17 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 #: C functions of every kernel library: ``{library: {function: argtypes}}``;
-#: the first is the launcher (pointers, then ints, then the stream).  Each
-#: returns a CUDA error code.
+#: the first is the float32 launcher, the second the bfloat16 one
+#: (pointers, then ints, then the stream).  Each returns a CUDA error
+#: code.
 SIGNATURES = {
     "attention": {
-        "additive_attention_forward": [_P] * 6 + [_I] * 5 + [_P]},
+        "additive_attention_forward": [_P] * 6 + [_I] * 5 + [_P],
+        "additive_attention_forward_bf16": [_P] * 6 + [_I] * 5 + [_P]},
     "decode_cell": {
         "decode_cell_forward": [_P] * 12 + [_I] * 7 + [_P],
-        "decode_cell_gate_max_clusters": [_I, _I,
+        "decode_cell_forward_bf16": [_P] * 12 + [_I] * 7 + [_P],
+        "decode_cell_gate_max_clusters": [_I, _I, _I,
                                           ctypes.POINTER(ctypes.c_int)]},
 }
 
@@ -127,17 +130,36 @@ def load(name: str, function: Optional[str] = None):
     return fn
 
 
-def on_cuda(what: str, tensors: Dict[str, "torch.Tensor"]) -> bool:
+#: Storage dtypes the kernels take: float32, and bfloat16 (the reference
+#: kernels' bf16 storage under ``--use_bfloat16``; math in float32).
+STORAGE_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def storage_dtype(what: str, tensor: "torch.Tensor") -> "torch.dtype":
+    """The storage dtype a kernel call runs in, read from one operand
+    that carries it; ``TypeError`` for a dtype no kernel takes."""
+    if tensor.dtype not in STORAGE_DTYPES:
+        raise TypeError(f"{what}: storage dtype {tensor.dtype}; the kernels "
+                        "take float32 or bfloat16 storage")
+    return tensor.dtype
+
+
+def on_cuda(what: str, tensors: Dict[str, "torch.Tensor"],
+            dtypes: Optional[Dict[str, "torch.dtype"]] = None) -> bool:
     """Route a kernel wrapper's call: False when every input lies on the
     CPU (the wrapper then takes its plain version), True when every input
-    is a contiguous float32 tensor on one CUDA device (the wrapper
-    launches its kernel).  Anything else raises: a dtype other than
-    float32, mixed devices, a non-contiguous CUDA tensor."""
+    is a contiguous tensor of its dtype on one CUDA device (the wrapper
+    launches its kernel).  ``dtypes`` gives the dtype each operand must
+    have (default: float32 for every operand).  Anything else raises: an
+    operand of another dtype (``TypeError``, on either device), mixed
+    devices, a non-contiguous CUDA tensor."""
     devices = {t.device for t in tensors.values()}
     for key, t in tensors.items():
-        if t.dtype != torch.float32:
-            raise TypeError(f"{what}: {key} is {t.dtype}; this kernel "
-                            "takes float32 only")
+        want = torch.float32 if dtypes is None else dtypes[key]
+        if t.dtype != want:
+            raise TypeError(f"{what}: {key} is {t.dtype}; this call takes "
+                            f"{want} (float32 storage, or bfloat16 storage "
+                            "with a float32 score_v)")
     if len(devices) != 1:
         raise ValueError(f"{what}: inputs on several devices {devices}")
     dev = devices.pop()

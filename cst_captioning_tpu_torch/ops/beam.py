@@ -10,7 +10,10 @@ Ties break as in the reference: ``jax.lax.top_k`` puts the lower flat
 index first among equal scores and ``jnp.argsort`` is stable.
 ``torch.topk`` promises no order among ties, so ``_top_k`` takes the
 first k of a STABLE descending sort (equal scores keep their index
-order), and the final ranking uses a stable ``argsort``.
+order), and the final ranking uses a stable ``argsort``.  The tie order
+matters more on a bfloat16 model, whose log-probabilities tie often:
+they meet the float32 beam scores as float32 (``torch.where`` against
+the float32 finished row promotes them, as ``jnp.where`` does).
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from typing import Callable
 
 import torch
 
+from ..precision import log_softmax
 from .sampling import all_finished, make_decode_step
 
 NEG_INF = -1e9
@@ -74,7 +78,7 @@ def beam_step(step: Callable, carry, prev, scores, finished, lengths,
     -> (carry, token, new_scores, finished, lengths, parent)."""
     carry, logits = step(carry, prev.reshape(-1))             # (B*k, V)
     vocab = logits.shape[-1]
-    logp = torch.log_softmax(logits, dim=-1).reshape(batch, k, vocab)
+    logp = log_softmax(logits, dim=-1).reshape(batch, k, vocab)
     logp = torch.where(finished[:, :, None],
                        eos_only_logp(vocab, logp.device)[None, None, :], logp)
     total = scores[:, :, None] + logp

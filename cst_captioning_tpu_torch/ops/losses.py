@@ -4,6 +4,10 @@
 Masking convention (0 = EOS labels): position t is supervised iff every
 earlier target token is nonzero, i.e. the words up to and including the
 first 0 (the model must learn to emit EOS); everything after is padding.
+
+The log-softmax runs in the logits' dtype (``precision.log_softmax``);
+bfloat16 log-probabilities become float32 where they meet the float32
+mask, weights or advantage, as in the reference.
 """
 
 from __future__ import annotations
@@ -11,6 +15,8 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+from ..precision import log_softmax
 
 
 def sequence_mask(targets: torch.Tensor) -> torch.Tensor:
@@ -24,7 +30,7 @@ def sequence_mask(targets: torch.Tensor) -> torch.Tensor:
 def token_logprobs(logits: torch.Tensor,
                    targets: torch.Tensor) -> torch.Tensor:
     """log p(target_t) per position: (N, L, V), (N, L) -> (N, L)."""
-    logp = torch.log_softmax(logits, dim=-1)
+    logp = log_softmax(logits, dim=-1)
     return logp.gather(-1, targets.long()[..., None])[..., 0]
 
 

@@ -17,6 +17,9 @@ from typing import Callable, Optional, Union
 import torch
 
 from ..models.captioner import repeat_for_captions
+from ..precision import log_softmax
+from .bf16_decode import (bf16_decode_supported, make_bf16_decode_step,
+                          note_reference_once)
 from .decode_cell_kernel import make_fused_decode_step
 
 #: ``noise(t, shape) -> tensor``: the Gumbel noise of decode step t.
@@ -38,10 +41,17 @@ def make_decode_step(model, memory: torch.Tensor, proj_mem: torch.Tensor,
                      pooled: torch.Tensor) -> Callable:
     """``step(carry, token (N,)) -> (carry, logits (N, V))`` over the
     model's decode cell: the K2 kernel for ``decode_kernel == "fused"``
-    (which raises for a model it does not cover), else the reference
-    cell."""
+    (which raises for a model it does not cover), the bfloat16 variant of
+    the reference cell for ``"bf16"`` (``ops/bf16_decode.py``; on a model
+    that already computes in bfloat16 that is the reference cell itself,
+    said once in the log), else the reference cell."""
     if model.decode_kernel == "fused":
         return make_fused_decode_step(model, memory, proj_mem)
+    if model.decode_kernel == "bf16":
+        ok, reason = bf16_decode_supported(model)
+        if ok:
+            return make_bf16_decode_step(model, memory, proj_mem, pooled)
+        note_reference_once(reason)
 
     def step(carry, token):
         carry, logits = model.decode(carry, token[:, None], memory, proj_mem,
@@ -58,10 +68,11 @@ def gumbel_noise(generator: torch.Generator,
     ``jax.random.gumbel`` (the clamp keeps ``U = 0`` from giving inf).
 
     With ``dtype=torch.bfloat16`` it is the draw ``jax.random.gumbel``
-    makes in bfloat16: ``U`` on the grid ``k / 128`` (bfloat16's 7
-    mantissa bits) clamped to bfloat16's ``tiny``, and each log rounded to
-    bfloat16, so the noise takes 128 values, all below 5.  It is returned
-    as float32."""
+    makes in bfloat16 (``jax.random.categorical`` on bfloat16 logits):
+    ``U`` on the grid ``k / 128`` (bfloat16's 7 mantissa bits) clamped to
+    bfloat16's ``tiny``, and each log rounded to bfloat16, so the noise
+    takes 128 values, all below 5.  The noise is returned in ``dtype``;
+    the sampler adds it in the logits' dtype."""
     if dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"Gumbel noise in {dtype}: float32 or bfloat16 only")
     tiny = torch.finfo(dtype).tiny
@@ -71,7 +82,7 @@ def gumbel_noise(generator: torch.Generator,
             k = torch.randint(0, 128, shape, generator=generator,
                               device=generator.device)
             u = (k.float() / 128).clamp_(min=tiny).to(dtype)
-            return (-torch.log(-torch.log(u))).float()
+            return -torch.log(-torch.log(u))
         u = torch.rand(shape, generator=generator,
                        device=generator.device).clamp_(min=tiny)
         return -torch.log(-torch.log(u))
@@ -89,11 +100,13 @@ def sample_tokens(step: Callable, init_carry, batch: int, max_len: int,
     ``greedy`` is a bool (the whole batch) or a per-row (N,) bool tensor,
     which lets one rollout carry multinomial rows and greedy baseline rows
     together (``sample_with_baseline``).  Multinomial rows take
-    ``argmax(logits / max(temperature, 1e-6) + noise(t, (N, V)))``, the
-    Gumbel-max draw ``jax.random.categorical`` makes; ``noise`` is
-    ``gumbel_noise(generator)``, or a test's hook that feeds the
-    reference's own Gumbel draws.  Every step draws noise for all rows,
-    greedy ones included, as the reference does.
+    ``argmax(logits / max(temperature, 1e-6) + noise(t, (N, V)))`` in the
+    logits' dtype (the noise cast to it), the Gumbel-max draw
+    ``jax.random.categorical`` makes; ``noise`` is
+    ``gumbel_noise(generator, dtype)`` with the model's compute dtype, or
+    a test's hook that feeds the reference's own Gumbel draws.  Every step
+    draws noise for all rows, greedy ones included, as the reference
+    does.
 
     Returns (tokens (N, L) int64 0-terminated, logprobs (N, L) float32 of
     the emitted tokens, 0 past the first EOS); with ``return_steps`` also
@@ -115,11 +128,12 @@ def sample_tokens(step: Callable, init_carry, batch: int, max_len: int,
     while t < max_len:
         for _ in range(min(chunk, max_len - t)):
             carry, logits = step(carry, prev)
-            logp = torch.log_softmax(logits, dim=-1)
+            logp = log_softmax(logits, dim=-1)
             if greedy is True:
                 nxt = logits.argmax(dim=-1)
             else:
-                nxt = (logits / scale + noise(t, logits.shape)).argmax(-1)
+                nxt = (logits / scale + noise(t, logits.shape).to(
+                    logits.dtype)).argmax(-1)
                 if per_row:
                     nxt = torch.where(greedy, logits.argmax(dim=-1), nxt)
             tok_logp = logp.gather(1, nxt[:, None])[:, 0]

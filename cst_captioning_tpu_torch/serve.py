@@ -30,6 +30,7 @@ import os
 import sys
 
 import numpy as np
+import torch
 
 from . import default_device
 from .data.shapes import parse_feat_shapes
@@ -55,8 +56,17 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--serve_videos", type=int, default=16)
     p.add_argument("--serve_demo_eos_bias", type=float, default=0.2)
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--decode_kernel", choices=("reference", "fused"),
-                   default="fused")
+    p.add_argument("--decode_kernel", choices=("reference", "fused", "bf16"),
+                   default="fused",
+                   help="decode cell: the model's cell, the K2 kernel, or "
+                        "the model's cell in bfloat16 over float32 "
+                        "parameters (float32 carry and logits at the "
+                        "step's boundary; parity-gated by "
+                        "tools/bf16_parity.py)")
+    p.add_argument("--use_bfloat16", type=int, default=0,
+                   help="1 = the model computes in bfloat16 over float32 "
+                        "parameters (the reference's --use_bfloat16); with "
+                        "--decode_kernel fused K2 runs in bfloat16 storage")
     p.add_argument("--pallas_attention", type=int, default=0,
                    help="reference cell: run attention on the K1 kernel")
     p.add_argument("--beam_size", type=int, default=5)
@@ -78,7 +88,8 @@ def build_backend(opt):
     device = default_device(opt.device)
     feat_shapes = parse_feat_shapes(opt.feat_shapes)
     kw = dict(decode_kernel=opt.decode_kernel,
-              use_kernel_attention=bool(opt.pallas_attention))
+              use_kernel_attention=bool(opt.pallas_attention),
+              dtype=torch.bfloat16 if opt.use_bfloat16 else torch.float32)
     if opt.serve_demo:
         vocab = Vocab({i: f"w{i}" for i in range(1, opt.vocab_size)})
         model = CaptionModel(
@@ -123,7 +134,8 @@ def main(argv=None) -> int:
     server = CaptionServer(engine, vocab, feats_for,
                            handler=PreemptionHandler().install())
     print(f"serve: ready on {model.device} (decode_kernel="
-          f"{opt.decode_kernel}, beam {engine.beam_size}, buckets "
+          f"{opt.decode_kernel}, compute {model.dtype}, beam "
+          f"{engine.beam_size}, buckets "
           f"{engine.buckets})", file=sys.stderr, flush=True)
     try:
         return server.run_stdin()

@@ -136,12 +136,16 @@ class ServingEngine:
         def z(*shape, dtype=torch.float32, fill=0):
             return torch.full(shape, fill, dtype=dtype, device=dev)
 
+        # The carry and the encodings in the model's compute dtype (the
+        # bf16 decode variant takes a float32 model's float32 buffers).
+        act = m.dtype
         state = {
-            "carry": tuple((z(rows, m.hidden_size), z(rows, m.hidden_size))
+            "carry": tuple((z(rows, m.hidden_size, dtype=act),
+                            z(rows, m.hidden_size, dtype=act))
                            for _ in range(m.num_layers)),
-            "memory": z(rows, t, m.hidden_size),
-            "proj_mem": z(rows, t, m.attn_size),
-            "pooled": z(rows, m.hidden_size),
+            "memory": z(rows, t, m.hidden_size, dtype=act),
+            "proj_mem": z(rows, t, m.attn_size, dtype=act),
+            "pooled": z(rows, m.hidden_size, dtype=act),
             "steps": z(slots, dtype=torch.long, fill=self.max_len),
         }
         shape = (slots,) if k == 1 else (slots, k)

@@ -62,8 +62,9 @@ ATTN_EDITS = [
     ("  cp_async_wait<0>();\n  __syncthreads();\n\n  // Context",
      "  ASTAMP(4);\n  cp_async_wait<0>();\n  __syncthreads();\n  ASTAMP(5);\n"
      "\n  // Context"),
-    ("    ctx[h_lo + h] = acc;\n  }\n}",
-     "    ctx[h_lo + h] = acc;\n  }\n  __syncthreads();\n  ASTAMP(6);\n}"),
+    ("    ctx[h_lo + h] = store_as<S>(acc);\n  }\n}",
+     "    ctx[h_lo + h] = store_as<S>(acc);\n  }\n  __syncthreads();\n"
+     "  ASTAMP(6);\n}"),
 ]
 GATE_EDITS = [
     ("  const int rank = (int)cluster.block_rank();\n  const int j0",
@@ -75,21 +76,21 @@ GATE_EDITS = [
      "x weights\n      __syncthreads();\n      STAMP(2);\n"),
     ("      griddep_wait();",
      "      STAMP(3);\n      griddep_wait();\n      STAMP(4);"),
-    ("      __syncthreads();\n      fma_rows(acc, ws, xs, n, xh_steps, "
+    ("      __syncthreads();\n      fma_rows(acc[0], ws, xs, n, xh_steps, "
      "n_steps, rows, lane);\n    } else {",
-     "      __syncthreads();\n      STAMP(5);\n      fma_rows(acc, ws, xs, "
-     "n, xh_steps, n_steps, rows, lane);\n    } else {"),
-    ("      __syncthreads();\n      fma_rows(acc, ws, xs, n, 0, xh_steps, "
-     "rows, lane);\n      fma_rows(acc, ws, xs, n, xh_steps, n_steps, rows, "
-     "lane);\n    }",
+     "      __syncthreads();\n      STAMP(5);\n      fma_rows(acc[0], ws, "
+     "xs, n, xh_steps, n_steps, rows, lane);\n    } else {"),
+    ("      __syncthreads();\n      if (kParts == 1) {",
      "      __syncthreads();\n      if (r0 == kGateRows) STAMP(10);\n"
-     "      fma_rows(acc, ws, xs, n, 0, xh_steps, rows, lane);\n"
-     "      if (r0 == kGateRows) STAMP(11);\n"
-     "      fma_rows(acc, ws, xs, n, xh_steps, n_steps, rows, lane);\n"
+     "      if (kParts == 1) {"),
+    ("      }\n      fma_rows(acc[0], ws, xs, n, xh_steps, n_steps, rows, "
+     "lane);\n    }",
+     "      }\n      if (r0 == kGateRows) STAMP(11);\n"
+     "      fma_rows(acc[0], ws, xs, n, xh_steps, n_steps, rows, lane);\n"
      "      if (r0 == kGateRows) STAMP(12);\n    }"),
-    ("    sum_lanes_rows(acc, rows);\n",
-     "    sum_lanes_rows(acc, rows);\n    if (r0 == 0) STAMP(6);\n"
-     "    if (r0 == kGateRows) STAMP(13);\n"),
+    ("    for (int p = 0; p < kParts; ++p) sum_lanes_rows(acc[p], rows);\n",
+     "    for (int p = 0; p < kParts; ++p) sum_lanes_rows(acc[p], rows);\n"
+     "    if (r0 == 0) STAMP(6);\n    if (r0 == kGateRows) STAMP(13);\n"),
     ("    const int chunk_row0 = r0 % kChunkRows;\n",
      "    const int chunk_row0 = r0 % kChunkRows;\n"
      "    if (r0 == kGateRows) STAMP(14);\n"),

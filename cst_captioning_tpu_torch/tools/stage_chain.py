@@ -8,17 +8,20 @@ The spec and hyperparameters are those of the reference's recorded chain
 videos, rich vocabulary 400, width 192, batch 32 x 20; XE 100 epochs at
 2e-4, WXE 20 at 1e-4, CST with the scb-sample baseline 12 at 2e-5; XE and
 WXE halve the rate every 30 epochs with patience 25, XE not stopping
-before epoch 30).  The reference ran bfloat16 logits with on-device
-rewards (``device_rewards 1``: strictly on-policy, float32 CIDEr-D) and
-device-resident features; the port runs float32 logits, and CST on the
-fused on-device path by default (``--cst_device_rewards 1``) or on the
-host reward (``0``, the pipeline at its default depth 2).  Each stage's
-best validation CIDEr-D is printed beside the reference's, then one JSON
-line with all three.  Every stage runs K1 in teacher forcing and K2 in
-rollouts and validation.  ``--stages cst`` with ``--cst_baseline`` /
-``--cst_temperature`` / ``--cst_noise_dtype`` / ``--cst_device_rewards``
-runs another CST stage from the same WXE checkpoint, into its own
-directory.
+before epoch 30).  The reference ran every stage in bfloat16
+(``use_bfloat16 1``, features in bfloat16) with device-resident features
+and on-device rewards (``device_rewards 1``: strictly on-policy, float32
+CIDEr-D).  ``--use_bfloat16 1`` runs the port so: every stage at
+``--use_bfloat16 1`` (bfloat16 features follow) with ``--device_feats
+1``; 0 (the default) runs it in float32.  CST runs on the fused on-device
+path by default (``--cst_device_rewards 1``) or on the host reward
+(``0``, the pipeline at its default depth 2).  Each stage's best
+validation CIDEr-D is printed beside the reference's, then one JSON line
+with all three.  Every stage runs K1 in teacher forcing and K2 in
+rollouts and validation, in the stages' storage dtype.  ``--stages cst``
+with ``--cst_baseline`` / ``--cst_temperature`` /
+``--cst_device_rewards`` runs another CST stage from the same WXE
+checkpoint, into its own directory.
 """
 
 from __future__ import annotations
@@ -38,8 +41,7 @@ REFERENCE = {"xe": 2.5352, "wxe": 2.8277, "cst": 3.1096}
 def stage_argv(out_dir: str, xe_patience: int = 25,
                cst_baseline: str = "scb-sample",
                cst_temperature: float = 1.0,
-               cst_noise_dtype: str = "float32",
-               cst_device_rewards: int = 1) -> dict:
+               cst_device_rewards: int = 1, use_bfloat16: int = 0) -> dict:
     common = ["--synthetic_videos", "512", "--synthetic_val_videos", "128",
               "--synthetic_rich_vocab", "400", "--captions_per_video", "20",
               "--feat_shapes", "28x2048,1x4096", "--synthetic_seed", "0",
@@ -47,15 +49,16 @@ def stage_argv(out_dir: str, xe_patience: int = 25,
               "--rnn_size", "192", "--input_encoding_size", "192",
               "--att_size", "192", "--max_length", "30", "--seed", "123",
               "--decode_chunk", "8", "--log_every", "50",
-              "--pallas_attention", "1", "--decode_kernel", "fused"]
+              "--pallas_attention", "1", "--decode_kernel", "fused",
+              "--use_bfloat16", str(use_bfloat16)]
+    if use_bfloat16:
+        common += ["--device_feats", "1"]
     sched = ["--learning_rate_decay_every", "30",
              "--learning_rate_decay_rate", "0.5"]
     ck = os.path.join(out_dir, "checkpoints")
-    cst_dir = ("cst" if (cst_baseline, cst_temperature, cst_noise_dtype)
-               == ("scb-sample", 1.0, "float32")
-               else f"cst_{cst_baseline}_T{cst_temperature:g}"
-               + ("" if cst_noise_dtype == "float32"
-                  else f"_{cst_noise_dtype}"))
+    cst_dir = ("cst" if (cst_baseline, cst_temperature)
+               == ("scb-sample", 1.0)
+               else f"cst_{cst_baseline}_T{cst_temperature:g}")
     if not cst_device_rewards:
         cst_dir += "_host"
     return {
@@ -71,7 +74,6 @@ def stage_argv(out_dir: str, xe_patience: int = 25,
         "cst": common + [
             "--use_rl", "1", "--rl_baseline", cst_baseline,
             "--temperature", str(cst_temperature),
-            "--noise_dtype", cst_noise_dtype,
             "--device_rewards", str(cst_device_rewards),
             "--max_patience", "0", "--max_epochs", "12",
             "--learning_rate", "2e-5", "--start_from", f"{ck}/wxe",
@@ -92,10 +94,10 @@ def main(argv=None) -> int:
                         "scb-sample")
     p.add_argument("--cst_temperature", type=float, default=1.0,
                    help="CST's sampling temperature")
-    p.add_argument("--cst_noise_dtype", default="float32",
-                   choices=("float32", "bfloat16"),
-                   help="dtype of CST's Gumbel noise; the reference's chain "
-                        "drew it in bfloat16")
+    p.add_argument("--use_bfloat16", type=int, default=0, choices=(0, 1),
+                   help="1 = every stage in bfloat16 with bfloat16 "
+                        "features resident on the device, as the "
+                        "reference's chain ran; 0 = float32")
     p.add_argument("--cst_device_rewards", type=int, default=1,
                    choices=(0, 1),
                    help="CST's reward: 1 = the fused on-device CIDEr-D "
@@ -105,7 +107,7 @@ def main(argv=None) -> int:
     os.makedirs(args.out_dir, exist_ok=True)
     stages = stage_argv(args.out_dir, args.xe_max_patience,
                         args.cst_baseline, args.cst_temperature,
-                        args.cst_noise_dtype, args.cst_device_rewards)
+                        args.cst_device_rewards, args.use_bfloat16)
     results = {}
     for name in args.stages.split(","):
         t0 = time.perf_counter()

@@ -55,10 +55,23 @@ def parse_args(argv=None) -> argparse.Namespace:
     g.add_argument("--drop_prob", type=float, default=0.5)
     g.add_argument("--pallas_attention", type=int, default=0,
                    help="1 = the decoder's attention on the K1 kernel")
-    g.add_argument("--decode_kernel", choices=("reference", "fused"),
+    g.add_argument("--decode_kernel", choices=("reference", "fused", "bf16"),
                    default="reference",
                    help="decode cell of rollouts and validation: the "
-                        "model's cell, or the K2 kernel")
+                        "model's cell, the K2 kernel, or the model's cell "
+                        "in bfloat16 (float32 carry and logits at the "
+                        "step's boundary)")
+    g.add_argument("--use_bfloat16", type=int, default=0,
+                   help="1 = compute in bfloat16 over float32 parameters, "
+                        "gradients and optimizer state: every Dense, the "
+                        "embedding, the LSTM cell, the logits, log-softmax "
+                        "and the Gumbel noise, as the reference's flax "
+                        "dtype; both kernels in bfloat16 storage")
+    g.add_argument("--bf16_feats", type=int, default=None,
+                   help="1 = features cast to bfloat16 on the host before "
+                        "the copy (and the --device_feats table held in "
+                        "bfloat16); 0 = float32; default: follow "
+                        "--use_bfloat16")
     g = p.add_argument_group("optimisation")
     g.add_argument("--batch_size", type=int, default=64)
     g.add_argument("--seq_per_img", type=int, default=20)
@@ -83,11 +96,6 @@ def parse_args(argv=None) -> argparse.Namespace:
                    choices=("greedy", "scb-sample", "scb-gt"))
     g.add_argument("--scb_captions", type=int, default=0)
     g.add_argument("--temperature", type=float, default=1.0)
-    g.add_argument("--noise_dtype", choices=("float32", "bfloat16"),
-                   default="float32",
-                   help="dtype the rollout's Gumbel noise is drawn and "
-                        "rounded in; bfloat16 is the draw the reference "
-                        "makes under --use_bfloat16")
     g.add_argument("--device_rewards", type=int, default=1,
                    help="1 = CIDEr-D on the device and the whole CST "
                         "iteration in one fused step (strictly on-policy); "

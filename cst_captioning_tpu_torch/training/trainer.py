@@ -26,7 +26,11 @@ the rollout noise (``rollout_seed``).
 
 Data are in-memory synthetic splits (``data/synthetic.py``); with
 ``--device_feats 1`` every training video's features stay on the card
-and batches gather them by ``Batch.video_ix``.  Random streams are
+and batches gather them by ``Batch.video_ix``.  ``--use_bfloat16 1``
+builds the model at ``dtype=bfloat16`` (parameters, gradients and
+optimizer state stay float32) and draws the rollout noise in bfloat16;
+features travel and reside in the dtype ``feat_dtype`` resolves from
+``--bf16_feats`` (default: follow ``--use_bfloat16``).  Random streams are
 explicit generators seeded from ``--seed``: the weights (CPU), the
 dropout masks and the rollout noise (on the device).
 """
@@ -42,7 +46,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from .. import default_device
-from ..data.loader import Batch, CaptionLoader
+from ..data.loader import Batch, CaptionLoader, feat_dtype, host_feats
 from ..data.shapes import parse_feat_shapes
 from ..data.synthetic import Split, SyntheticSpec, generate
 from ..metrics.ciderd import CiderD, build_corpus_df
@@ -138,7 +142,8 @@ def build_model(opt, vocab_size: int, feat_dims) -> CaptionModel:
         vocab_size, feat_dims, embed_size=opt.input_encoding_size,
         hidden_size=opt.rnn_size, attn_size=opt.att_size,
         use_kernel_attention=bool(opt.pallas_attention),
-        decode_kernel=opt.decode_kernel, drop_prob=opt.drop_prob)
+        decode_kernel=opt.decode_kernel, drop_prob=opt.drop_prob,
+        dtype=torch.bfloat16 if opt.use_bfloat16 else torch.float32)
 
 
 class Trainer:
@@ -160,6 +165,9 @@ class Trainer:
             log.info("warm-started from %s (step %s, score %s)",
                      opt.start_from, prev["step"], prev["best_score"])
         self.model.to(self.device)
+        self.feat_dtype = feat_dtype(opt.use_bfloat16, opt.bf16_feats)
+        log.info("compute dtype %s (parameters float32), features %s",
+                 self.model.dtype, self.feat_dtype)
 
         weights = None
         if opt.use_consensus_weights:
@@ -180,8 +188,7 @@ class Trainer:
         self._rng_salt = 0
         self.noise_gen = torch.Generator(self.device).manual_seed(
             rollout_seed(opt.seed))
-        self.noise = gumbel_noise(self.noise_gen,
-                                  dtype=getattr(torch, opt.noise_dtype))
+        self.noise = gumbel_noise(self.noise_gen, dtype=self.model.dtype)
         self.guard = (DivergenceGuard(opt.divergence_max_bad,
                                       opt.divergence_max_rollbacks)
                       if opt.divergence_guard else None)
@@ -206,8 +213,10 @@ class Trainer:
 
     def _load_device_feats(self) -> List[torch.Tensor]:
         """Every training video's features on the device, one tensor per
-        modality, refused over ``--device_feats_max_gb``."""
-        size = sum(f.nbytes for f in self.train_split.feats)
+        modality in ``feat_dtype`` (cast on the host first), refused over
+        ``--device_feats_max_gb``."""
+        itemsize = torch.finfo(self.feat_dtype).bits // 8
+        size = sum(f.size * itemsize for f in self.train_split.feats)
         budget = float(self.opt.device_feats_max_gb) * 1e9
         if size > budget:
             raise ValueError(
@@ -215,11 +224,11 @@ class Trainer:
                 f"({self.train_split.num_videos} videos), over the "
                 f"--device_feats_max_gb {budget / 1e9:.1f} GB budget: use "
                 "--device_feats 0 or raise the budget if the card fits it")
-        tables = [torch.from_numpy(f).to(self.device)
-                  for f in self.train_split.feats]
+        tables = [t.to(self.device) for t in
+                  host_feats(self.train_split.feats, self.feat_dtype)]
         log.info("device_feats: %d videos x %d modalities on the device "
-                 "(%.3f GB)", self.train_split.num_videos, len(tables),
-                 size / 1e9)
+                 "(%.3f GB, %s)", self.train_split.num_videos, len(tables),
+                 size / 1e9, self.feat_dtype)
         return tables
 
     def _setup_host_rl(self) -> None:
@@ -307,7 +316,8 @@ class Trainer:
         if self.feat_tables is not None:
             ix = torch.from_numpy(batch.video_ix).to(self.device)
             return [t[ix] for t in self.feat_tables]
-        return [torch.from_numpy(f).to(self.device) for f in batch.feats]
+        return [t.to(self.device)
+                for t in host_feats(batch.feats, self.feat_dtype)]
 
     def xe_iteration(self, batch: Batch) -> Completed:
         """One XE/WXE update; metrics stay on the device."""

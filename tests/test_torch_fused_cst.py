@@ -413,14 +413,19 @@ def test_divergence_rolls_back_then_gives_up(tmp_path, monkeypatch):
 def test_stage_chain_picks_the_cst_reward_path():
     """``tools/stage_chain.py --cst_device_rewards``: the CST stage's
     argv runs the fused path (1, the default) or the host pipeline (0),
-    each into its own directory."""
+    each into its own directory; ``--use_bfloat16 1`` runs it in bfloat16
+    with the features resident on the device, as the reference's chain."""
     from cst_captioning_tpu_torch.tools.stage_chain import stage_argv
 
-    fused = stage_argv("out", cst_noise_dtype="bfloat16")["cst"]
-    host = stage_argv("out", cst_noise_dtype="bfloat16",
-                      cst_device_rewards=0)["cst"]
+    fused = stage_argv("out", use_bfloat16=1)["cst"]
+    host = stage_argv("out", use_bfloat16=1, cst_device_rewards=0)["cst"]
     assert train.parse_args(fused).device_rewards == 1
     assert train.parse_args(host).device_rewards == 0
+    for argv in (fused, host):
+        opt = train.parse_args(argv)
+        assert (opt.use_bfloat16, opt.bf16_feats, opt.device_feats) == (
+            1, None, 1)
+    assert train.parse_args(stage_argv("out")["cst"]).use_bfloat16 == 0
     dirs = [a[a.index("--checkpoint_path") + 1] for a in (fused, host)]
     assert dirs[1] == dirs[0] + "_host"
 

@@ -94,6 +94,29 @@ def test_tf32_is_off():
     assert torch.backends.cudnn.allow_tf32 is False
 
 
+def test_bf16_products_reduce_in_float32():
+    """A bfloat16 product is a float32 sum rounded once, as XLA computes
+    it: cuBLAS may not reduce split-K partial sums in bfloat16."""
+    assert (torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+            is False)
+
+
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: str(
+    p.relative_to(REPO)))
+def test_no_autocast(path):
+    """bfloat16 compute is explicit casts in each module, never
+    ``torch.autocast`` (which keeps softmax, log-softmax and the losses in
+    float32 and picks its own cast points): no name or attribute
+    ``autocast`` appears in the code (docstrings may say so)."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        name = (node.attr if isinstance(node, ast.Attribute) else
+                node.id if isinstance(node, ast.Name) else
+                " ".join(a.name for a in node.names)
+                if isinstance(node, (ast.Import, ast.ImportFrom)) else "")
+        assert "autocast" not in name, f"{path}:{node.lineno} uses {name}"
+
+
 @pytest.fixture
 def no_gpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

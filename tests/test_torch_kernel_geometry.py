@@ -107,7 +107,7 @@ def test_wrappers_raise_before_touching_cuda(monkeypatch, kernel, dims,
     def no_cuda(*args, **kwargs):
         raise AssertionError("the wrapper reached CUDA")
 
-    monkeypatch.setattr(_cuda, "on_cuda", lambda what, tensors: True)
+    monkeypatch.setattr(_cuda, "on_cuda", lambda what, tensors, dtypes: True)
     monkeypatch.setattr(_cuda, "load", no_cuda)
     args = _cell_args(2, **dims)
     with pytest.raises(ValueError, match=match):
@@ -130,3 +130,119 @@ def test_geometry_constants_match_the_cuda_sources():
         k2.GATE_CLUSTER, k2.GATE_UNITS, k2.GATE_SUB, k2.GATE_WARPS,
         k2.GATE_ROWS, k2.GATE_CHUNK_ROWS)
     assert _constants("attention.cuh")["kAttnCluster"] == k1.ATTN_CLUSTER
+
+
+# -- bfloat16 storage: a 16-byte copy carries 8 values ---------------------
+
+@pytest.mark.parametrize("b", [1, 8, 40, 1344])
+@pytest.mark.parametrize("dims", [SERVING, SMALL, dict(SMALL, t=6)],
+                         ids=["serving", "small-t5", "small-t6"])
+def test_bf16_geometry_fits_one_card(dims, b):
+    gate = k2.gate_geometry(b, dims["e"], dims["h"], 2)
+    attn = k1.attention_geometry(b, dims["t"], dims["a"], dims["h"], 2)
+    assert gate["smem_bytes"] <= k1.SMEM_LIMIT
+    assert attn["smem_bytes"] <= k1.SMEM_LIMIT
+    assert gate["blocks"] <= SMS
+    assert (gate["smem_bytes"] + attn["smem_bytes"] + 2 * BLOCK_RESERVED
+            <= SM_SMEM)
+
+
+def test_bf16_serving_geometry():
+    """bfloat16 halves the weight slice (48 KB a block, 6.3 MB in all) and
+    the input buffers; the partial sums double (the h side and the input
+    side are summed apart); the tiles and K slices are those of float32."""
+    gate = k2.gate_geometry(8, 512, 512, 2)
+    assert gate == {"cluster": 2, "column_tiles": 64, "blocks": 128,
+                    "k_rows": 768, "row_groups": 1,
+                    "smem_bytes": 2 * 4 * (8 * 8 * 32 + 64 * 32)
+                    + 2 * (768 * 32 + 2 * 8 * 768)}
+    assert 2 * gate["k_rows"] * 4 * k2.GATE_UNITS == 48 * 1024
+    assert gate["blocks"] * 48 * 1024 == (512 + 2 * 512) * 4 * 512 * 2
+    attn = k1.attention_geometry(8, 29, 512, 512, 2)
+    assert attn == {"cluster": 4, "blocks": 32, "time_steps": 8,
+                    "h_slice": 128,
+                    "smem_bytes": 2 * (512 + 8 * 512 + 29 * 128)
+                    + 4 * (512 + 29)}
+
+
+@pytest.mark.parametrize("args, match", [
+    ((8, 512, 24, 2), "multiples of 16"),   # H: 12 rows a slice, not 8k
+    ((8, 8, 32, 2), "multiples of 16"),     # E: 4 rows a slice
+    ((8, 512, 512, 3), "float32 \\(4\\) or bfloat16 \\(2\\)"),
+])
+def test_bf16_gate_geometry_refuses(args, match):
+    with pytest.raises(ValueError, match=match):
+        k2.gate_geometry(*args)
+
+
+@pytest.mark.parametrize("args, match", [
+    ((8, 29, 36, 512, 2), "A % 8 == 0"),
+    ((8, 29, 512, 48, 2), "H % 32 == 0"),
+    ((8, 29, 512, 512, 8), "float32 \\(4\\) or bfloat16 \\(2\\)"),
+])
+def test_bf16_attention_geometry_refuses(args, match):
+    with pytest.raises(ValueError, match=match):
+        k1.attention_geometry(*args)
+
+
+@pytest.mark.parametrize("kernel, dims, match", [
+    ("K2", dict(t=5, e=32, h=48, a=32), "H % 32 == 0"),
+    ("K2", dict(t=5, e=24, h=32, a=32), "multiples of 16"),
+    ("K1", dict(t=5, e=32, h=32, a=36), "A % 8 == 0"),
+])
+def test_bf16_wrappers_raise_before_touching_cuda(monkeypatch, kernel,
+                                                   dims, match):
+    def no_cuda(*args, **kwargs):
+        raise AssertionError("the wrapper reached CUDA")
+
+    monkeypatch.setattr(_cuda, "on_cuda", lambda what, tensors, dtypes: True)
+    monkeypatch.setattr(_cuda, "load", no_cuda)
+    args = [a if i == 6 else a.to(torch.bfloat16)
+            for i, a in enumerate(_cell_args(2, **dims))]
+    with pytest.raises(ValueError, match=match):
+        if kernel == "K2":
+            k2.fused_decode_cell(*args)
+        else:
+            k1.fused_additive_attention(*args[3:7])
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K2"])
+@pytest.mark.parametrize("case", ["mixed", "bf16-score_v", "half"])
+def test_wrappers_refuse_mixed_or_unsupported_storage(kernel, case):
+    """Storage is float32, or bfloat16 with a float32 score_v, on either
+    device: a float32 operand among bfloat16 ones, a bfloat16 score_v or
+    a half-precision storage raise TypeError, on CPU tensors too."""
+    args = list(_cell_args(3, **SMALL))
+    if case == "half":
+        args = [a if i == 6 else a.half() for i, a in enumerate(args)]
+    else:
+        args = [a if i == 6 else a.to(torch.bfloat16)
+                for i, a in enumerate(args)]
+        if case == "mixed":
+            args[4] = args[4].float()           # proj_mem
+        else:
+            args[6] = args[6].to(torch.bfloat16)
+    with pytest.raises(TypeError, match="float32|bfloat16"):
+        if kernel == "K2":
+            k2.fused_decode_cell(*args)
+        else:
+            k1.fused_additive_attention(*args[3:7])
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K2"])
+def test_wrappers_take_bf16_plain_version_on_cpu(kernel):
+    """bfloat16 storage on CPU tensors: the plain version, outputs in
+    bfloat16, no launch counted."""
+    args = [a if i == 6 else a.to(torch.bfloat16)
+            for i, a in enumerate(_cell_args(3, **SMALL))]
+    fn, plain, args = ((k2.fused_decode_cell, k2.decode_cell_plain, args)
+                       if kernel == "K2" else
+                       (k1.fused_additive_attention,
+                        k1.additive_attention_plain, args[3:7]))
+    fn.launches = 0
+    fn.launches_by_dtype = {"float32": 0, "bfloat16": 0}
+    with torch.no_grad():
+        got, want = fn(*args), plain(*args)
+    assert all(g.dtype == torch.bfloat16 and torch.equal(g, w)
+               for g, w in zip(got, want))
+    assert fn.launches == 0 and sum(fn.launches_by_dtype.values()) == 0

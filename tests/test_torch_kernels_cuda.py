@@ -135,17 +135,19 @@ def test_cuda_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         k2.fused_decode_cell(*args)
 
 
-def test_gate_clusters_fit_in_one_wave(cuda):
+@pytest.mark.parametrize("elem_bytes", [4, 2], ids=["float32", "bfloat16"])
+def test_gate_clusters_fit_in_one_wave(cuda, elem_bytes):
     """The card holds every gate cluster of the serving width at once (the
-    weight stream's premise; a second wave would read its weights late)."""
+    weight stream's premise; a second wave would read its weights late),
+    in either storage dtype."""
     import ctypes
 
     from cst_captioning_tpu_torch.ops import _cuda
 
     n = ctypes.c_int(0)
     fn = _cuda.load("decode_cell", "decode_cell_gate_max_clusters")
-    assert fn(E, H, ctypes.byref(n)) == 0
-    assert n.value >= k2.gate_geometry(8, E, H)["column_tiles"]
+    assert fn(E, H, elem_bytes, ctypes.byref(n)) == 0
+    assert n.value >= k2.gate_geometry(8, E, H, elem_bytes)["column_tiles"]
 
 
 def test_served_greedy_captions_equal_offline_on_card(cuda):
@@ -317,3 +319,134 @@ def test_guarded_fused_step_on_nan_features_changes_nothing_on_card(cuda):
     assert all(torch.equal(a[k], st[k])
                for a, st in zip(before[1], opt.state) for k in st)
     assert torch.equal(before[2], opt.count) and opt.count.item() == 1.0
+
+
+def _bf16_ulp(ref):
+    """One bfloat16 ulp at the magnitude of ``ref`` (its largest |value|):
+    the kernels' tolerance in bfloat16 storage, since their float32 sums
+    run in another order than the plain version's before the rounding."""
+    return 2.0 ** (np.floor(np.log2(ref.float().abs().max().item())) - 7)
+
+
+#: K2's tolerance in bfloat16, in ulps of the output's magnitude.  Its
+#: float32 gate sums run in another order than cuBLAS's, so now and then
+#: one rounds to the neighbouring bfloat16 value; the gate chain rounds
+#: ten times after the sums, and where two such flips meet in one
+#: element (a gate and the cell state) c' or h' moves by up to two ulps
+#: of the magnitude (seen at B = 1344: 1.5).  K1 rounds once, at the end:
+#: one ulp.
+K2_BF16_ULPS = 2
+
+
+def _bf16(args, keep_float=()):
+    return [a if i in keep_float else a.to(torch.bfloat16)
+            for i, a in enumerate(args)]
+
+
+@pytest.mark.parametrize("b", [1, 8, 40, 1280])
+def test_attention_kernel_bf16_matches_plain(cuda, b):
+    """K1 in bfloat16 storage (score_v float32) against its plain version
+    on the card, compared in bfloat16: within one bfloat16 ulp of each
+    output's magnitude; one launch, counted under bfloat16."""
+    args = _bf16([a.to(cuda) for a in _attention_inputs(b, b)],
+                 keep_float=(3,))
+    before = dict(k1.fused_additive_attention.launches_by_dtype)
+    ctx, w = k1.fused_additive_attention(*args)
+    torch.cuda.synchronize()
+    after = k1.fused_additive_attention.launches_by_dtype
+    assert after["bfloat16"] == before["bfloat16"] + 1
+    assert after["float32"] == before["float32"]
+    for got, want in zip((ctx, w), k1.additive_attention_plain(*args)):
+        assert got.dtype == want.dtype == torch.bfloat16
+        assert (got.float() - want.float()).abs().max().item() <= \
+            _bf16_ulp(want)
+
+
+@pytest.mark.parametrize("b", [1, 3, 8, 40, 64, 100, 1344])
+def test_decode_cell_kernel_bf16_matches_plain(cuda, b):
+    """K2 in bfloat16 storage against its plain version on the card,
+    compared in bfloat16: c' and h' within two bfloat16 ulps of their
+    magnitude (K2_BF16_ULPS); B = 64, 100 and 1344 take several row groups
+    and chunks."""
+    args = _bf16([t.to(cuda) for t in _cell_inputs(b, b)], keep_float=(6,))
+    before = k2.fused_decode_cell.launches_by_dtype["bfloat16"]
+    c, h = k2.fused_decode_cell(*args)
+    torch.cuda.synchronize()
+    assert k2.fused_decode_cell.launches_by_dtype["bfloat16"] == before + 2
+    for got, want in zip((c, h), k2.decode_cell_plain(*args)):
+        assert got.dtype == want.dtype == torch.bfloat16
+        assert (got.float() - want.float()).abs().max().item() <= \
+            K2_BF16_ULPS * _bf16_ulp(want)
+
+
+@pytest.mark.parametrize("t", [5, 6])
+def test_kernels_bf16_match_plain_at_the_test_width(cuda, t):
+    args = _bf16([a.to(cuda) for a in _cell_inputs(7, t, **dict(SMALL, t=t))],
+                 keep_float=(6,))
+    for got, want in ((k2.fused_decode_cell(*args),
+                       k2.decode_cell_plain(*args)),
+                      (k1.fused_additive_attention(*args[3:7]),
+                       k1.additive_attention_plain(*args[3:7]))):
+        for g, w in zip(got, want):
+            assert (g.float() - w.float()).abs().max().item() <= \
+                K2_BF16_ULPS * _bf16_ulp(w)
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K2"])
+def test_kernels_bf16_are_batch_invariant_bitwise(cuda, kernel):
+    """In bfloat16 storage too, a row's outputs have the same bits in a
+    batch of 40, alone, and at another index of the batch."""
+    b = 40
+    args = _bf16([a.to(cuda) for a in _cell_inputs(b, 12)], keep_float=(6,))
+    if kernel == "K1":
+        fn, args, per_row = k1.fused_additive_attention, args[3:7], 3
+    else:
+        fn, per_row = k2.fused_decode_cell, 6
+
+    def rows(idx):
+        return [a[idx].contiguous() if i < per_row else a
+                for i, a in enumerate(args)]
+
+    full = fn(*args)
+    perm = torch.roll(torch.arange(b, device=cuda), 17)
+    for out, moved in zip(full, fn(*rows(perm))):
+        assert torch.equal(out[perm], moved)
+    for r in (0, 13, 39):
+        for out, alone in zip(full, fn(*rows(slice(r, r + 1)))):
+            assert torch.equal(out[r:r + 1], alone)
+
+
+def test_attention_kernel_bf16_gradients_equal_plain_backward(cuda):
+    """K1's autograd route in bfloat16 storage: the gradients through the
+    kernel equal, bit for bit, the plain backward on the same inputs and
+    upstream gradients, each in its input's dtype (score_v float32)."""
+    inputs = _bf16([a.to(cuda) for a in _attention_inputs(64, 7)],
+                   keep_float=(3,))
+    g = torch.Generator().manual_seed(8)
+    g_ctx = torch.randn(64, H, generator=g).to(cuda, torch.bfloat16)
+    g_w = torch.randn(64, T, generator=g).to(cuda, torch.bfloat16)
+    leaves = [a.clone().requires_grad_() for a in inputs]
+    torch.autograd.backward(list(k1.fused_additive_attention(*leaves)),
+                            [g_ctx, g_w])
+    want = k1.additive_attention_backward(*inputs, g_ctx, g_w)
+    for leaf, grad in zip(leaves, want):
+        assert leaf.grad.dtype == leaf.dtype
+        assert torch.equal(leaf.grad, grad)
+
+
+def test_cuda_wrappers_refuse_mixed_storage(cuda):
+    """bfloat16 storage is all-or-nothing (score_v float32): a float32
+    operand among bfloat16 ones, a bfloat16 score_v, or a half-precision
+    storage is refused before anything launches."""
+    q, pm, mem, v = (a.to(cuda) for a in _attention_inputs(4, 0))
+    bq, bpm, bmem = (a.to(torch.bfloat16) for a in (q, pm, mem))
+    with pytest.raises(TypeError, match="bfloat16"):
+        k1.fused_additive_attention(q, bpm, bmem, v)
+    with pytest.raises(TypeError, match="score_v"):
+        k1.fused_additive_attention(bq, bpm, bmem, v.to(torch.bfloat16))
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        k1.fused_additive_attention(q.half(), pm.half(), mem.half(), v)
+    args = _bf16([a.to(cuda) for a in _cell_inputs(2, 0)], keep_float=(6,))
+    args[7] = args[7].float()
+    with pytest.raises(TypeError, match="w is torch.float32"):
+        k2.fused_decode_cell(*args)

@@ -133,18 +133,19 @@ def test_reference_bfloat16_gumbel_noise_is_capped():
 
 
 def test_bfloat16_gumbel_noise_takes_the_reference_values():
-    """``--noise_dtype bfloat16``: the port's draw takes exactly the 128
-    values ``jax.random.gumbel`` takes in bfloat16 (all of them appear in
-    10^6 draws on both sides), is seeded, and comes back as float32."""
+    """The noise of a bfloat16 model (``--use_bfloat16 1``): the port's
+    draw takes exactly the 128 values ``jax.random.gumbel`` takes in
+    bfloat16 (all of them appear in 10^6 draws on both sides), is seeded,
+    and comes back in bfloat16, the logits' dtype."""
     want = np.unique(np.asarray(jax.random.gumbel(
         jax.random.PRNGKey(0), (1000, 1000), jnp.bfloat16)
         .astype(jnp.float32)))
     draw = sampling.gumbel_noise(torch.Generator().manual_seed(0),
                                  dtype=torch.bfloat16)
     port = draw(0, (1000, 1000))
-    assert port.dtype == torch.float32
+    assert port.dtype == torch.bfloat16
     assert len(want) == 128
-    np.testing.assert_array_equal(np.unique(port.numpy()), want)
+    np.testing.assert_array_equal(np.unique(port.float().numpy()), want)
     again = sampling.gumbel_noise(torch.Generator().manual_seed(0),
                                   dtype=torch.bfloat16)(0, (1000, 1000))
     assert torch.equal(port, again)

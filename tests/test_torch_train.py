@@ -192,17 +192,51 @@ def test_cli_early_stop_and_scb_baselines(tmp_path, capsys):
 
 
 def test_cli_cst_with_bfloat16_noise(tmp_path, capsys):
-    """``--noise_dtype bfloat16``: CST's rollouts draw the reference's
-    bfloat16 Gumbel noise (128 values, all below 5)."""
+    """``--use_bfloat16 1``: CST's rollouts draw the reference's bfloat16
+    Gumbel noise (128 values, all below 5), in the logits' dtype; the
+    parameters stay float32."""
     out = _run(["--checkpoint_path", str(tmp_path / "b"), "--use_rl", "1",
-                "--rl_baseline", "scb-sample", "--noise_dtype", "bfloat16",
+                "--rl_baseline", "scb-sample", "--use_bfloat16", "1",
                 "--max_epochs", "1"], capsys)
     assert out["last_step"] == 3
     from cst_captioning_tpu_torch.training.trainer import Trainer
-    noise = Trainer(train.parse_args(
-        TINY + ["--noise_dtype", "bfloat16"])).noise(0, (300, 300))
-    assert noise.dtype == torch.float32 and noise.max().item() < 5.0
+    trainer = Trainer(train.parse_args(TINY + ["--use_bfloat16", "1"]))
+    noise = trainer.noise(0, (300, 300))
+    assert noise.dtype == torch.bfloat16 and noise.max().item() < 5.0
     assert len(noise.unique()) <= 128
+    assert trainer.model.dtype == torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in trainer.model.parameters())
+
+
+def test_bf16_parity_tool_on_a_trained_checkpoint(tmp_path, capsys):
+    """``tools/bf16_parity.py`` on an XE checkpoint of the train CLI: one
+    JSON line with the parity gate's verdict over the float32 and the
+    bfloat16 decodes of the val split, and the exit code it implies; a
+    bfloat16 model has nothing to gate."""
+    from cst_captioning_tpu_torch.ops.bf16_decode import parity_gate
+    from cst_captioning_tpu_torch.tools import bf16_parity
+
+    _run(["--checkpoint_path", str(tmp_path / "xe"), "--max_epochs", "2",
+          "--learning_rate", "1e-2"], capsys)
+    args = ["--checkpoint_path", str(tmp_path / "xe"), "--device", "cpu",
+            "--batch_size", "4"]
+    for bound in ("0.02", "100"):
+        rc = bf16_parity.main(args + ["--cider_delta_bound", bound])
+        out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        assert out["supported"] and out["num_videos"] == 5
+        assert 0.0 <= out["caption_agreement"] <= 1.0
+        want = parity_gate(out["cider_fp32"], out["cider_bf16"],
+                           float(bound))
+        assert {k: out[k] for k in want} == want
+        assert rc == (0 if out["within_bound"] else 1)
+    assert out["within_bound"] and rc == 0
+    assert bf16_parity.main(args + ["--use_bfloat16", "1"]) == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out == {"supported": False,
+                   "reason": "model compute dtype is already bfloat16",
+                   "kernel_recommendation": "reference"}
+    assert bf16_parity.main(["--checkpoint_path", str(tmp_path / "no"),
+                             "--device", "cpu"]) == 2
 
 
 def test_train_cli_raises_without_gpu_unless_cpu(monkeypatch, tmp_path):
