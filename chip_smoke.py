@@ -68,7 +68,15 @@ Phases, each printed as it runs; any failure exits non-zero:
    steps (K1 bfloat16 forward and backward) and the fused CST step (1 +
    3, K2 bfloat16 at 1344 rows), with ms/step, captions/s, the rollout,
    reward and grad split, a profiled step and peak memory.  Every launch
-   of phase 8 must be a bfloat16 one.
+   of phase 8 must be a bfloat16 one;
+9. beam-5 evaluation through ``python -m cst_captioning_tpu_torch.eval``
+   of the CST ``best.pt`` phase 7 wrote: K2 at the eval's 320 rows (64
+   videos x 5 beams) against its plain version within 1e-5, with times;
+   the 497 val videos decoded with ``--decode_kernel fused``, K2 launched
+   exactly twice per executed beam step; the seven scores, decode seconds
+   and videos/s, and each scorer's host seconds; ``--engine serving``
+   equal to the offline decode on every video; and 12 requests through
+   ``serve --checkpoint_path`` equal to the eval's predictions.
 
 Each serving phase sets every kernel's launch count to 0 just before it
 and reads the counts just after; a kernel of the path launched other
@@ -80,8 +88,8 @@ dispatched; the fused path builds no host reward.
 
 Output: phase lines as they run; then a JSON object with one entry per
 kernel and storage dtype (``storage``; times at the serving batch B = 8,
-every measured batch under ``by_batch``; launches of phases 4-7 for
-float32, of phase 8 for bfloat16); then the card line (``nvidia-smi``
+every measured batch under ``by_batch``; launches of phases 4-7 and 9
+for float32, of phase 8 for bfloat16); then the card line (``nvidia-smi``
 name and power limit); and last ``{"ok": true, "device": ...}``.
 Without a CUDA device, or run outside a checkout of the repository, the
 script exits non-zero and prints no result.
@@ -128,6 +136,11 @@ TRAIN_BATCH, TRAIN_SEQ = 64, 20
 TRAIN_ROWS = TRAIN_BATCH * TRAIN_SEQ
 ROLLOUT_ROWS = TRAIN_ROWS + TRAIN_BATCH
 TRAIN_VOCAB = 7752
+# Phase 7 writes each stage's best.pt here; phase 9 evaluates CST's.
+CKPT_ROOT = os.path.join(HERE, "checkpoints", "chip_smoke")
+# Phase 9: the beam-5 eval at the eval CLI's default batch of 64 videos.
+EVAL_BATCH, EVAL_BEAM = 64, 5
+EVAL_ROWS = EVAL_BATCH * EVAL_BEAM
 
 
 EXIT_FAILURE = 1
@@ -834,8 +847,7 @@ def train_phase(splits):
     from cst_captioning_tpu_torch.training import checkpoint
     from cst_captioning_tpu_torch.training.trainer import Trainer
 
-    ckpt_root = os.path.join(HERE, "checkpoints", "chip_smoke")
-    shutil.rmtree(ckpt_root, ignore_errors=True)
+    shutil.rmtree(CKPT_ROOT, ignore_errors=True)
     rows = TRAIN_BATCH * TRAIN_SEQ
     total = {"fused_additive_attention": 0, "fused_decode_cell": 0}
 
@@ -851,14 +863,14 @@ def train_phase(splits):
                 total[key] += launches[key]
 
     def save_best(trainer, stage):
-        path = os.path.join(ckpt_root, stage)
+        path = os.path.join(CKPT_ROOT, stage)
         checkpoint.save(path, checkpoint.BEST,
                         trainer.checkpoint_payload(0.0, 0.0))
         return path
 
     torch.cuda.reset_peak_memory_stats()
     xe = Trainer(train.parse_args(stage_args(
-        "--checkpoint_path", os.path.join(ckpt_root, "xe"))), splits)
+        "--checkpoint_path", os.path.join(CKPT_ROOT, "xe"))), splits)
     add(timed_steps(xe, 2, teacher_forced))
     xe_steps = timed_steps(xe, 10, teacher_forced)
     add(xe_steps)
@@ -879,7 +891,7 @@ def train_phase(splits):
     wxe = Trainer(train.parse_args(stage_args(
         "--use_consensus_weights", "1", "--learning_rate", "1e-4",
         "--start_from", start,
-        "--checkpoint_path", os.path.join(ckpt_root, "wxe"))), splits)
+        "--checkpoint_path", os.path.join(CKPT_ROOT, "wxe"))), splits)
     wxe_steps = timed_steps(wxe, 3, teacher_forced)
     add(wxe_steps)
     report_stage("WXE", wxe_steps, rows)
@@ -892,7 +904,7 @@ def train_phase(splits):
     # CST, fused on-device path (--device_rewards 1, the default).
     t0 = time.perf_counter()
     cst = Trainer(train.parse_args(stage_args(
-        *cst_args, "--checkpoint_path", os.path.join(ckpt_root, "cst"))),
+        *cst_args, "--checkpoint_path", os.path.join(CKPT_ROOT, "cst"))),
         splits)
     setup = cst.reward_setup
     print(f"train CST fused: trainer built in {time.perf_counter() - t0:.1f} "
@@ -921,6 +933,7 @@ def train_phase(splits):
     cst_steps = timed_steps(cst, 3, fused_step)
     add(cst_steps)
     fused_ms = report_stage("CST fused", cst_steps, rows)
+    save_best(cst, "cst")                   # phase 9 evaluates it
     changed = sum(not torch.equal(a, p.detach())
                   for a, p in zip(before, cst.model.parameters()))
     ms = phase_medians(cst_steps)
@@ -967,7 +980,7 @@ def train_phase(splits):
     # then the drain.
     host = Trainer(train.parse_args(stage_args(
         *cst_args, "--device_rewards", "0", "--overlap_rewards", "2",
-        "--checkpoint_path", os.path.join(ckpt_root, "cst_host"))), splits)
+        "--checkpoint_path", os.path.join(CKPT_ROOT, "cst_host"))), splits)
     device_and_host_scores(cst, host.reward_computer._score)
     del cst
 
@@ -1006,7 +1019,6 @@ def train_phase(splits):
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB "
           f"(torch.cuda.max_memory_allocated)")
     del host
-    shutil.rmtree(ckpt_root, ignore_errors=True)
     return total
 
 
@@ -1327,6 +1339,152 @@ def bf16_train_phase(splits) -> dict:
     return total
 
 
+def eval_phase(splits, res) -> int:
+    """Phase 9: the beam-5 evaluation of phase 7's CST ``best.pt`` (WXE's
+    if CST wrote none) through ``python -m cst_captioning_tpu_torch.eval``
+    at full width: K2 at the eval's 320 rows against its plain version
+    (adds ``res["K2"][320]``); the offline decode of the 497 val videos
+    (``--decode_kernel fused --eval_batch_size 64``) with K2 launched
+    exactly twice per executed beam step; the seven scores, decode seconds
+    and the host seconds of each scorer; ``--engine serving`` through the
+    CLI's ``main`` (it raises unless every caption equals the offline
+    decode's, and its result file must hold the same captions); and a
+    few requests through ``serve.build_backend`` with
+    ``--checkpoint_path``, equal to the eval's predictions.  -> K2's
+    launches in the offline decode."""
+    import shutil
+
+    import torch
+
+    from cst_captioning_tpu_torch import eval as port_eval
+    from cst_captioning_tpu_torch import serve
+    from cst_captioning_tpu_torch.metrics.coco_eval import language_eval
+    from cst_captioning_tpu_torch.ops import (launch_counts,
+                                              launch_counts_by_dtype,
+                                              reset_launch_counts)
+    from cst_captioning_tpu_torch.serving.buckets import parse_buckets
+    from cst_captioning_tpu_torch.serving.engine import ServingEngine
+    from cst_captioning_tpu_torch.serving.server import CaptionServer
+    from cst_captioning_tpu_torch.training import checkpoint
+
+    flush = torch.empty(FLUSH_BYTES // 4, device="cuda")
+    gen = torch.Generator().manual_seed(2468)
+    res["K2"][EVAL_ROWS] = check_k2(
+        EVAL_ROWS, attention_inputs(EVAL_ROWS, gen), gen, flush)
+    report_check("K2", EVAL_ROWS, res["K2"][EVAL_ROWS],
+                 " (beam-5 eval rows)")
+    del flush
+
+    stage = next((s for s in ("cst", "wxe") if os.path.exists(
+        os.path.join(CKPT_ROOT, s, checkpoint.BEST))), None)
+    if stage is None:
+        fail("phase 9: phase 7 wrote no CST or WXE best.pt")
+    ck = os.path.join(CKPT_ROOT, stage)
+    argv = ["--checkpoint_path", ck, "--beam_size", str(EVAL_BEAM),
+            "--eval_batch_size", str(EVAL_BATCH), "--max_length",
+            str(MAX_LEN), "--decode_chunk", str(CHUNK), "--decode_kernel",
+            "fused"]
+
+    # The offline beam decode, launches counted around it alone.
+    args = port_eval.parse_args(argv)
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    out = port_eval.evaluate(args)
+    torch.cuda.synchronize()
+    launches = {**launch_counts(), **launch_counts_by_dtype()}
+    total_s = time.perf_counter() - t0
+    scores, preds = out["scores"], out["predictions"]
+    n = len(preds)
+    print(f"eval {stage} beam {EVAL_BEAM}: {n} videos, K2 at "
+          f"{EVAL_ROWS} rows; decode {out['decode_s']:.3f} s = "
+          f"{n / out['decode_s']:.1f} videos/s ({out['decode_steps']} beam "
+          f"steps); scoring {out['score_s']:.3f} s (host); whole call "
+          f"{total_s:.3f} s (the data rebuilt from the checkpoint's spec "
+          f"included); launches {launches}")
+    print(f"eval {stage} scores: " + ", ".join(
+        f"{k} {v:.6f}" for k, v in scores.items()))
+    if n != splits[1].num_videos:
+        fail(f"phase 9: {n} predictions for {splits[1].num_videos} videos")
+    check_launches(f"eval {stage}", "K2", launches["fused_decode_cell"],
+                   out["decode_steps"], 2)
+    if launches["fused_additive_attention"] or launches[
+            "fused_decode_cell/bfloat16"]:
+        fail(f"phase 9: launches other than float32 K2: {launches}")
+    if sorted(scores) != sorted(["Bleu_1", "Bleu_2", "Bleu_3", "Bleu_4",
+                                 "METEOR_approx", "ROUGE_L", "CIDEr"]) \
+            or not all(0.0 <= v < 20.0 for v in scores.values()):
+        fail(f"phase 9: scores {scores}")
+    refs = splits[1].refs
+    per = {}
+    for scorer in ("Bleu", "METEOR", "ROUGE_L", "CIDEr"):
+        t0 = time.perf_counter()
+        part = language_eval(preds, refs, scorers=(scorer,))
+        per[scorer] = time.perf_counter() - t0
+        if any(part[k] != scores[k] for k in part):
+            fail(f"phase 9: {scorer} alone gives {part}, the suite {scores}")
+    print("eval scorers, host seconds each (tokenisation included): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in per.items()))
+
+    # --engine serving through the CLI's main.
+    result = os.path.join(ck, "eval_serving.json")
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        rc = port_eval.main(argv + ["--engine", "serving",
+                                    "--result_file", result])
+    except RuntimeError as e:
+        fail(f"phase 9: {e}")
+    torch.cuda.synchronize()
+    engine_launch = {**launch_counts(), **launch_counts_by_dtype()}
+    with open(result) as f:
+        served = json.load(f)
+    same = sum(a == b for a, b in zip(served["predictions"], preds))
+    print(f"eval --engine serving: rc {rc}, {same}/{n} captions equal to "
+          f"the offline decode, {time.perf_counter() - t0:.3f} s; launches "
+          f"{engine_launch}")
+    if rc != 0 or same != n or len(served["predictions"]) != n:
+        fail("phase 9: the serving engine's captions differ from the "
+             "offline decode")
+    if (engine_launch["fused_decode_cell"] == 0
+            or engine_launch["fused_decode_cell"] % 2):
+        fail(f"phase 9: serving engine launches {engine_launch}")
+
+    # serve --checkpoint_path: a few requests.
+    opt = serve.parse_args(["--checkpoint_path", ck, "--beam_size",
+                            str(EVAL_BEAM), "--decode_kernel", "fused",
+                            "--max_length", str(MAX_LEN),
+                            "--decode_chunk", str(CHUNK)])
+    model, vocab, feat_shapes, feats_for = serve.build_backend(opt)
+    engine = ServingEngine(
+        model, feat_shapes, max_len=opt.max_length, beam_size=opt.beam_size,
+        decode_chunk=opt.decode_chunk,
+        bucket_sizes=parse_buckets(opt.serve_buckets),
+        queue_limit=opt.serve_queue_limit)
+    want = {p["image_id"]: p["caption"] for p in preds[:12]}
+    lines = [json.dumps({"id": i, "video_id": v}) + "\n"
+             for i, v in enumerate(want)]
+    sink = io.StringIO()
+    reset_launch_counts()
+    rc = CaptionServer(engine, vocab, feats_for, out=sink).run_stdin(
+        lines=lines)
+    torch.cuda.synchronize()
+    launches_now = {**launch_counts(), **launch_counts_by_dtype()}
+    got = {r["video_id"]: r.get("caption") for r in
+           map(json.loads, sink.getvalue().splitlines())}
+    stats = engine.stats()
+    same = sum(got.get(v) == c for v, c in want.items())
+    print(f"serve --checkpoint_path: {len(want)} requests, {same} captions "
+          f"equal to the eval's; max_length {opt.max_length}; "
+          f"decode_steps {stats['decode_steps']}; launches {launches_now}")
+    if rc != 0 or same != len(want):
+        fail("phase 9: served captions differ from the eval's predictions")
+    check_launches("serve --checkpoint_path", "K2",
+                   launches_now["fused_decode_cell"], stats["decode_steps"],
+                   2)
+    shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+    return launches["fused_decode_cell"]
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "cst_captioning_tpu_torch")):
         print("chip_smoke: no cst_captioning_tpu_torch package beside "
@@ -1400,8 +1558,11 @@ def main() -> int:
     s_launch = bf16_serve_phases()
     bt_launch = bf16_train_phase(splits)
 
+    # Phase 9: beam-5 evaluation of phase 7's checkpoint, K2 at 320 rows.
+    e_launch = eval_phase(splits, measured)
+
     # The kernels line: one entry per kernel and storage dtype.  Launches:
-    # float32 from phases 4-7, bfloat16 from phase 8; times at B=8, the
+    # float32 from phases 4-7 and 9, bfloat16 from phase 8; times at B=8, the
     # greedy serving batch (8-slot bucket), every measured batch under
     # ``by_batch``.
     launches = {
@@ -1409,7 +1570,7 @@ def main() -> int:
         + t_launch["fused_additive_attention"],
         ("K2", "float32"): g_launch["fused_decode_cell"]
         + beam_launch["fused_decode_cell"]
-        + t_launch["fused_decode_cell"],
+        + t_launch["fused_decode_cell"] + e_launch,
         ("K1", "bfloat16"): s_launch["fused_additive_attention/bfloat16"]
         + bt_launch["fused_additive_attention/bfloat16"],
         ("K2", "bfloat16"): s_launch["fused_decode_cell/bfloat16"]

@@ -169,10 +169,13 @@ def _make_features(spec: SyntheticSpec, captions: List[List[str]],
 
 
 def generate(split: str = "train", spec: SyntheticSpec = SyntheticSpec(),
-             vocab: Optional[Vocab] = None, consensus: bool = True) -> Split:
+             vocab: Optional[Vocab] = None, consensus: bool = True,
+             features: bool = True) -> Split:
     """One split.  Pass the train split's vocabulary for val/test so ids
     agree.  ``consensus=False`` skips the consensus scores (validation
-    needs none)."""
+    needs none); ``features=False`` leaves ``feats`` empty (a train split
+    built for its vocabulary alone: the features draw last from the
+    split's stream, so nothing else changes)."""
     rng = np.random.default_rng(spec.seed + zlib.crc32(split.encode()))
     captions = _make_captions(rng, spec, vocab=vocab)
     video_ids = [f"{split}_video{i}" for i in range(spec.num_videos)]
@@ -194,7 +197,8 @@ def generate(split: str = "train", spec: SyntheticSpec = SyntheticSpec(),
         labels=np.stack(rows).astype(np.int32),
         label_start=np.asarray(starts, dtype=np.int64),
         label_end=np.asarray(ends, dtype=np.int64),
-        feats=_make_features(spec, captions, vocab, rng),
+        feats=(_make_features(spec, captions, vocab, rng) if features
+               else []),
         vocab=vocab,
         refs=dict(zip(video_ids, captions)),
         consensus=scores)

@@ -1,2 +1,3 @@
-"""Caption metrics of the port: the PTB-style tokenizer, CIDEr-D and the
-consensus scores (own copies of the reference's pure-Python modules)."""
+"""Caption metrics of the port: the PTB-style tokenizer, CIDEr-D, the
+consensus scores and the evaluation suite (BLEU, METEOR_approx, ROUGE-L,
+``language_eval``), own copies of the reference's pure-Python modules."""

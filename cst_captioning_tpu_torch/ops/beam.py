@@ -155,9 +155,11 @@ def beam_search_tokens(step: Callable, init_carry, batch: int,
 
 @torch.no_grad()
 def beam_search(model, feats, beam_size: int, max_len: int,
-                length_norm: float = 0.0, decode_chunk: int = 0):
+                length_norm: float = 0.0, decode_chunk: int = 0,
+                return_steps: bool = False):
     """Encode + beam-decode a batch of videos -> (best (B, L), all beams
-    (B, k, L), scores (B, k))."""
+    (B, k, L), scores (B, k)), and with ``return_steps`` the decode steps
+    executed."""
     memory, proj_mem, pooled = model.encode(feats)
     batch = pooled.shape[0]
     memory, proj_mem, pooled = _expand_to_beams(
@@ -166,4 +168,5 @@ def beam_search(model, feats, beam_size: int, max_len: int,
     step = make_decode_step(model, memory, proj_mem, pooled)
     return beam_search_tokens(step, carry, batch, beam_size, max_len,
                               length_norm=length_norm,
-                              decode_chunk=decode_chunk)
+                              decode_chunk=decode_chunk,
+                              return_steps=return_steps)

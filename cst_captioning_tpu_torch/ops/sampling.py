@@ -196,12 +196,13 @@ def sample_with_baseline(model, feats, max_len: int, seq_per_img: int,
 
 
 @torch.no_grad()
-def greedy_decode(model, feats, max_len: int,
-                  decode_chunk: int = 0) -> torch.Tensor:
-    """Encode + deterministic argmax decode -> (B, L) tokens."""
+def greedy_decode(model, feats, max_len: int, decode_chunk: int = 0,
+                  return_steps: bool = False):
+    """Encode + deterministic argmax decode -> (B, L) tokens, and with
+    ``return_steps`` the decode steps executed."""
     memory, proj_mem, pooled = model.encode(feats)
     carry = model.init_carry(pooled)
     step = make_decode_step(model, memory, proj_mem, pooled)
-    tokens, _ = sample_tokens(step, carry, pooled.shape[0], max_len,
-                              decode_chunk=decode_chunk)
-    return tokens
+    out = sample_tokens(step, carry, pooled.shape[0], max_len,
+                        decode_chunk=decode_chunk, return_steps=return_steps)
+    return (out[0], out[2]) if return_steps else out[0]

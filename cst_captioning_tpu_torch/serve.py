@@ -3,8 +3,8 @@
     python -m cst_captioning_tpu_torch.serve --serve_demo 1 \\
         --decode_kernel fused --beam_size 1 < requests.jsonl
 
-Two backends, both with a seeded feature table (ids ``v0`` ..
-``v{N-1}``, ``--serve_videos``) at ``--feat_shapes``:
+Three backends.  The first two serve a seeded feature table (ids ``v0``
+.. ``v{N-1}``, ``--serve_videos``) at ``--feat_shapes``:
 
 - **demo mode** (``--serve_demo 1``): a seeded untrained model at the
   widths ``--rnn_size/--input_encoding_size/--att_size/--vocab_size``
@@ -15,6 +15,14 @@ Two backends, both with a seeded feature table (ids ``v0`` ..
   ``"a/b/c"``-keyed npz of the reference's Flax parameter tree and its
   ``{id: word}`` vocabulary.  Widths come from the weights; the feature
   dims of ``--feat_shapes`` must match them.
+- **a trained checkpoint** (``--checkpoint_path``): ``best.pt`` of a
+  directory the train CLI wrote, rebuilt as ``eval.py`` rebuilds it (the
+  architecture from the checkpoint's saved options; ``--decode_kernel``
+  and ``--pallas_attention`` from this CLI).  Video ids are those of the
+  checkpoint's synthetic val split (``val_video{i}``) with that split's
+  features, and ``--max_length`` defaults to the checkpoint's, so the
+  captions equal the eval CLI's predictions at the same beam and decode
+  settings.
 
 Protocol and shutdown: ``serving/server.py`` (stdin EOF exits 0, SIGTERM
 drains and exits 75).  Engine stats go to stderr as one JSON line.
@@ -35,6 +43,7 @@ import torch
 from . import default_device
 from .data.shapes import parse_feat_shapes
 from .data.vocab import Vocab
+from .eval import load_checkpoint_model
 from .models import CaptionModel
 from .serving.buckets import parse_buckets
 from .serving.engine import ServingEngine
@@ -45,6 +54,9 @@ from .weights import init_random_, load_params_npz, model_from_flax
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--serve_demo", type=int, default=0)
+    p.add_argument("--checkpoint_path", default="",
+                   help="serve best.pt of a train-CLI directory on its val "
+                        "split's videos")
     p.add_argument("--params_npz", default="")
     p.add_argument("--vocab_json", default="")
     p.add_argument("--rnn_size", type=int, default=512)
@@ -70,7 +82,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--pallas_attention", type=int, default=0,
                    help="reference cell: run attention on the K1 kernel")
     p.add_argument("--beam_size", type=int, default=5)
-    p.add_argument("--max_length", type=int, default=30)
+    p.add_argument("--max_length", type=int, default=None,
+                   help="decode length; default: the checkpoint's, else 30")
     p.add_argument("--length_norm", type=float, default=0.0)
     p.add_argument("--decode_chunk", type=int, default=8)
     p.add_argument("--serve_buckets", default="1,4,8")
@@ -78,14 +91,33 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--device", default=None,
                    help="torch device; default cuda (raises without a GPU)")
     opt = p.parse_args(argv)
-    if not opt.serve_demo and not (opt.params_npz and opt.vocab_json):
-        p.error("pass --serve_demo 1, or --params_npz and --vocab_json")
+    if not (opt.serve_demo or opt.checkpoint_path
+            or (opt.params_npz and opt.vocab_json)):
+        p.error("pass --serve_demo 1, --checkpoint_path, or --params_npz "
+                "and --vocab_json")
     return opt
 
 
 def build_backend(opt):
-    """-> (model, vocab, feat_shapes, feats_for) on the chosen device."""
+    """-> (model, vocab, feat_shapes, feats_for) on the chosen device;
+    sets ``opt.max_length`` where it was left to the backend."""
     device = default_device(opt.device)
+    if opt.checkpoint_path:
+        model, vocab, val, saved = load_checkpoint_model(
+            opt.checkpoint_path, device, opt.decode_kernel,
+            opt.pallas_attention)
+        if opt.max_length is None:
+            opt.max_length = saved.max_length
+        index = {vid: i for i, vid in enumerate(val.video_ids)}
+
+        def split_feats(video_id):
+            i = index.get(str(video_id))
+            return None if i is None else [f[i] for f in val.feats]
+
+        return (model, vocab, [f.shape[1:] for f in val.feats],
+                split_feats)
+    if opt.max_length is None:
+        opt.max_length = 30
     feat_shapes = parse_feat_shapes(opt.feat_shapes)
     kw = dict(decode_kernel=opt.decode_kernel,
               use_kernel_attention=bool(opt.pallas_attention),

@@ -461,3 +461,36 @@ def serve_decode_batch(model, feats_list: Sequence[Sequence[np.ndarray]],
         engine.submit(i, feats)
     tokens = {c.request_id: c.tokens for c in engine.run_until_idle()}
     return [tokens[i] for i in range(len(feats_list))]
+
+
+def serve_decode_split(model, loader, vocab, max_len: int,
+                       beam_size: int = 1, length_norm: float = 0.0,
+                       decode_chunk: int = 8,
+                       bucket_sizes: Sequence[int] = DEFAULT_BUCKETS
+                       ) -> List[Dict[str, str]]:
+    """Decode a whole split through the serving engine (offline load) ->
+    ``[{"image_id", "caption"}]`` in dataset order: the twin of
+    ``training.evaluation.decode_split`` that ``eval --engine serving``
+    holds caption for caption against it.  Every video is submitted once
+    (the loader's wrap padding skipped); the engine steps after each
+    batch is submitted and then runs to idle."""
+    ds = loader.ds
+    engine = ServingEngine(
+        model, [f.shape[1:] for f in ds.feats], max_len=max_len,
+        beam_size=beam_size, length_norm=length_norm,
+        decode_chunk=decode_chunk, bucket_sizes=bucket_sizes,
+        queue_limit=0)
+    order, seen, tokens = [], set(), {}
+    for batch in loader.iter_eval():
+        for j, vid in enumerate(batch.video_ids):
+            if vid in seen:
+                continue
+            seen.add(vid)
+            order.append(vid)
+            engine.submit(vid, [f[j] for f in batch.feats])
+        for comp in engine.step():
+            tokens[comp.request_id] = comp.tokens
+    for comp in engine.run_until_idle():
+        tokens[comp.request_id] = comp.tokens
+    return [{"image_id": vid, "caption": vocab.decode(tokens[vid])}
+            for vid in order]

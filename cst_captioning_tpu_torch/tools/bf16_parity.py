@@ -5,8 +5,8 @@ reference's ``scripts/bf16_parity.py``).
         --checkpoint_path ck/cst [--beam_size 1] [--use_bfloat16 0]
 
 Loads ``best.pt`` of one of the port's training runs and rebuilds the
-synthetic val split of its options (``build_splits``: the same spec and
-seed), decodes every val video with the model's float32 cell
+synthetic val split of its options (``eval.load_checkpoint_model``: the
+same spec and seed), decodes every val video with the model's float32 cell
 (``--decode_kernel reference``) and with the bfloat16 variant
 (``--decode_kernel bf16``) over the same float32 parameters, scores both
 with the port's CIDEr-D, and prints one JSON line: ``parity_gate``'s
@@ -33,12 +33,12 @@ import torch
 
 from .. import default_device
 from ..data.loader import CaptionLoader
+from ..eval import load_checkpoint_model
+from ..metrics.coco_eval import language_eval
 from ..ops.bf16_decode import (DEFAULT_CIDER_DELTA_BOUND,
                                bf16_decode_supported, parity_gate)
-from ..train import parse_args
 from ..training import checkpoint
-from ..training.evaluation import ciderd_score, decode_split
-from ..training.trainer import build_model, build_splits
+from ..training.evaluation import decode_split
 
 EXIT_OK, EXIT_OUTSIDE, EXIT_USAGE = 0, 1, 2
 
@@ -65,17 +65,11 @@ def main(argv=None) -> int:
               f"{args.checkpoint_path}", file=sys.stderr)
         return EXIT_USAGE
     device = default_device(args.device)
-    saved = checkpoint.load(args.checkpoint_path, checkpoint.BEST)
-    opt = parse_args([])
-    vars(opt).update(saved["opt"])
+    model, vocab, val, opt = load_checkpoint_model(args.checkpoint_path,
+                                                   device)
     if args.use_bfloat16 is not None:
-        opt.use_bfloat16 = args.use_bfloat16
-    opt.use_consensus_weights, opt.use_rl = 0, 0   # no consensus scores
-    train, val = build_splits(opt)
-    model = build_model(opt, train.vocab.size_with_pad,
-                        [f.shape[-1] for f in train.feats])
-    model.load_state_dict(saved["model"])
-    model = model.eval().to(device)
+        model = model.clone(dtype=torch.bfloat16 if args.use_bfloat16
+                            else torch.float32)
     ok, reason = bf16_decode_supported(model)
     if not ok:
         print(json.dumps({"supported": False, "reason": reason,
@@ -87,11 +81,12 @@ def main(argv=None) -> int:
     with torch.no_grad():
         for kernel in ("reference", "bf16"):
             preds[kernel] = decode_split(
-                model.clone(decode_kernel=kernel), loader, train.vocab,
+                model.clone(decode_kernel=kernel), loader, vocab,
                 opt.max_length, beam_size=args.beam_size,
                 length_norm=args.length_norm,
                 decode_chunk=args.decode_chunk)
-            scores[kernel] = ciderd_score(preds[kernel], val.refs)
+            scores[kernel] = language_eval(preds[kernel], val.refs,
+                                           scorers=("CIDEr",))["CIDEr"]
     agree = sum(a["caption"] == b["caption"] for a, b in
                 zip(preds["reference"], preds["bf16"]))
     out = {"supported": True,

@@ -18,10 +18,18 @@ path by default (``--cst_device_rewards 1``) or on the host reward
 (``0``, the pipeline at its default depth 2).  Each stage's best
 validation CIDEr-D is printed beside the reference's, then one JSON line
 with all three.  Every stage runs K1 in teacher forcing and K2 in
-rollouts and validation, in the stages' storage dtype.  ``--stages cst``
-with ``--cst_baseline`` / ``--cst_temperature`` /
-``--cst_device_rewards`` runs another CST stage from the same WXE
-checkpoint, into its own directory.
+rollouts and validation, in the stages' storage dtype.  Validation scores
+CIDEr only and selects on it (``--fast_val 1 --eval_metric CIDEr``), as
+the reference's chain ran.  ``--stages cst`` with ``--cst_baseline`` /
+``--cst_temperature`` / ``--cst_device_rewards`` runs another CST stage
+from the same WXE checkpoint, into its own directory.
+
+The ``eval`` stage (on by default, after ``cst``) runs the eval CLI at
+beam 5, batch 32 and max_length 30 (K2 at 160 rows) on the ``best.pt`` of
+every stage directory this chain has written (the CST directory of the
+``--cst_*`` options), writes ``{stage}_beam5.json`` into ``--out_dir``
+and prints Bleu_1-4, METEOR_approx, ROUGE_L and CIDEr beside the
+reference chain's beam-5 scores.
 """
 
 from __future__ import annotations
@@ -37,6 +45,23 @@ import time
 #: (artifacts/cpu512_healthy/report.md).
 REFERENCE = {"xe": 2.5352, "wxe": 2.8277, "cst": 3.1096}
 
+#: Beam-5 val scores of the reference chain's best checkpoints
+#: (artifacts/cpu512_healthy/{xe,wxe,cst_scb_sample}_beam5.json).
+REFERENCE_BEAM5 = {
+    "xe": {"Bleu_1": 0.7302064851022512, "Bleu_2": 0.5751567926535752,
+           "Bleu_3": 0.45067834859006706, "Bleu_4": 0.35367761981008455,
+           "METEOR_approx": 0.6462826840569083, "ROUGE_L": 0.705581509496305,
+           "CIDEr": 2.3032758102796835},
+    "wxe": {"Bleu_1": 0.7789581784305578, "Bleu_2": 0.6462953580235381,
+            "Bleu_3": 0.5338678901925413, "Bleu_4": 0.44091924261731685,
+            "METEOR_approx": 0.7087670023310043,
+            "ROUGE_L": 0.7377759639303482, "CIDEr": 2.9372583081366423},
+    "cst": {"Bleu_1": 0.7924027707734712, "Bleu_2": 0.6694180582896315,
+            "Bleu_3": 0.5589803269360998, "Bleu_4": 0.4636369384193793,
+            "METEOR_approx": 0.7243445407697031,
+            "ROUGE_L": 0.7488783759772564, "CIDEr": 3.108681281479171},
+}
+
 
 def stage_argv(out_dir: str, xe_patience: int = 25,
                cst_baseline: str = "scb-sample",
@@ -49,6 +74,7 @@ def stage_argv(out_dir: str, xe_patience: int = 25,
               "--rnn_size", "192", "--input_encoding_size", "192",
               "--att_size", "192", "--max_length", "30", "--seed", "123",
               "--decode_chunk", "8", "--log_every", "50",
+              "--fast_val", "1", "--eval_metric", "CIDEr",
               "--pallas_attention", "1", "--decode_kernel", "fused",
               "--use_bfloat16", str(use_bfloat16)]
     if use_bfloat16:
@@ -87,7 +113,7 @@ def main(argv=None) -> int:
     p.add_argument("--xe_max_patience", type=int, default=25,
                    help="XE's early-stop patience in epochs (0 = the full "
                         "100 epochs); the reference's chain used 25")
-    p.add_argument("--stages", default="xe,wxe,cst")
+    p.add_argument("--stages", default="xe,wxe,cst,eval")
     p.add_argument("--cst_baseline", default="scb-sample",
                    choices=("greedy", "scb-sample", "scb-gt"),
                    help="CST's baseline; the reference's chain used "
@@ -110,6 +136,11 @@ def main(argv=None) -> int:
                         args.cst_device_rewards, args.use_bfloat16)
     results = {}
     for name in args.stages.split(","):
+        if name == "eval":
+            results["eval"] = eval_stage(args.out_dir, stages)
+            if results["eval"] is None:
+                return 1
+            continue
         t0 = time.perf_counter()
         ck_dir = stages[name][stages[name].index("--checkpoint_path") + 1]
         log_path = os.path.join(args.out_dir,
@@ -138,8 +169,39 @@ def main(argv=None) -> int:
             if s in results]
     print(json.dumps({"stages": results,
                       "ordered": all(a < b for a, b in zip(best, best[1:])),
-                      "reference": REFERENCE}))
+                      "reference": REFERENCE,
+                      "reference_beam5": REFERENCE_BEAM5}))
     return 0
+
+
+def eval_stage(out_dir: str, stages: dict):
+    """Beam-5 eval of each stage's ``best.pt`` -> {stage: scores}, or
+    None when an eval failed."""
+    scores = {}
+    for name in ("xe", "wxe", "cst"):
+        argv = stages[name]
+        ck_dir = argv[argv.index("--checkpoint_path") + 1]
+        if not os.path.exists(os.path.join(ck_dir, "best.pt")):
+            continue
+        result = os.path.join(out_dir, f"{name}_beam5.json")
+        t0 = time.perf_counter()
+        with open(os.path.join(out_dir, f"eval_{name}.log"), "w") as log:
+            proc = subprocess.run(
+                [sys.executable, "-m", "cst_captioning_tpu_torch.eval",
+                 "--checkpoint_path", ck_dir, "--beam_size", "5",
+                 "--batch_size", "32", "--max_length", "30",
+                 "--decode_kernel", "fused", "--result_file", result],
+                stdout=subprocess.PIPE, stderr=log, text=True, check=False)
+        if proc.returncode != 0:
+            print(f"eval of {ck_dir} failed with exit code "
+                  f"{proc.returncode}", file=sys.stderr)
+            return None
+        scores[name] = json.loads(proc.stdout.strip().splitlines()[-1])
+        ref = REFERENCE_BEAM5[name]
+        print(f"eval {name} (beam 5, {time.perf_counter() - t0:.1f} s): "
+              + ", ".join(f"{k} {v:.4f} (reference {ref[k]:.4f})"
+                          for k, v in scores[name].items()), flush=True)
+    return scores
 
 
 if __name__ == "__main__":

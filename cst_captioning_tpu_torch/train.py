@@ -20,10 +20,11 @@ synthetic splits built in memory from ``--synthetic_seed``
 ``--synthetic_rich_vocab``, ``--captions_per_video``, ``--feat_shapes``,
 ``--max_length``), the generator of the reference's ``data/synthetic.py``.
 Runs on the CUDA device unless ``--device cpu`` is given; without a GPU
-it raises instead of running on the CPU.  Validation scores CIDEr-D,
-which also picks the best checkpoint.  The last line of standard output
-is a JSON summary: best score, its step, the last step, the metric and
-the checkpoint directory.
+it raises instead of running on the CPU.  Validation scores the val split
+with ``language_eval`` (``--fast_val 1``: CIDEr and the selection metric
+only) and ``--eval_metric`` picks the best checkpoint.  The last line of
+standard output is a JSON summary: best score, its step, the last step,
+the metric and the checkpoint directory.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ import json
 import logging
 import sys
 
+from .metrics.coco_eval import KNOWN_EVAL_METRICS
 from .training.state import OPTIMIZERS
 from .training.trainer import Trainer
 
@@ -127,6 +129,14 @@ def parse_args(argv=None) -> argparse.Namespace:
     g.add_argument("--max_length", type=int, default=30,
                    help="label length and decode length")
     g.add_argument("--val_beam_size", type=int, default=1)
+    g.add_argument("--eval_batch_size", type=int, default=0,
+                   help="validation batch; 0 = --batch_size")
+    g.add_argument("--eval_metric", default="CIDEr",
+                   help="the validation score that picks the best "
+                        "checkpoint: one of " + ", ".join(KNOWN_EVAL_METRICS)
+                   + " (METEOR selects METEOR_approx)")
+    g.add_argument("--fast_val", type=int, default=0,
+                   help="1 = validation scores CIDEr and --eval_metric only")
     g.add_argument("--length_norm", type=float, default=0.0)
     g.add_argument("--decode_chunk", type=int, default=8)
     g.add_argument("--checkpoint_path", default="checkpoints/run")
@@ -162,7 +172,7 @@ def main(argv=None) -> int:
     print(json.dumps({"best_score": result["best_score"],
                       "best_step": result["best_step"],
                       "last_step": result["last_step"],
-                      "eval_metric": "CIDEr",
+                      "eval_metric": opt.eval_metric,
                       "checkpoint_path": opt.checkpoint_path}))
     return 0
 

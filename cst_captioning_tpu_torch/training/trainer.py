@@ -2,8 +2,10 @@
 ``training/trainer.py``, single device).
 
 The stage runs an epoch loop over the training split: one update per
-batch, validation at every epoch boundary (greedy decode, CIDEr-D),
-``best.pt`` on a new best score, ``last.pt`` every epoch, and an early
+batch, validation at every epoch boundary (greedy decode by default,
+``language_eval``'s scores; ``--eval_metric`` selects the model and
+``--fast_val 1`` scores CIDEr and that metric only), ``best.pt`` on a new
+best score, ``last.pt`` every epoch, and an early
 stop after ``max_patience`` epochs without improvement (not before
 ``min_epochs``).  The learning rate decays by ``learning_rate_decay_rate``
 every ``learning_rate_decay_every`` epochs, counted in updates as the
@@ -50,6 +52,7 @@ from ..data.loader import Batch, CaptionLoader, feat_dtype, host_feats
 from ..data.shapes import parse_feat_shapes
 from ..data.synthetic import Split, SyntheticSpec, generate
 from ..metrics.ciderd import CiderD, build_corpus_df
+from ..metrics.coco_eval import KNOWN_EVAL_METRICS, score_key
 from ..metrics.consensus import normalize_weights
 from ..metrics.tokenizer import tokenize_corpus
 from ..models.captioner import CaptionModel
@@ -115,10 +118,11 @@ def phase_ms(metrics: Dict[str, Any]) -> Dict[str, float]:
     return out
 
 
-def build_splits(opt) -> Tuple[Split, Split]:
+def build_splits(opt, train_features: bool = True) -> Tuple[Split, Split]:
     """The train and val splits of the options' synthetic spec; the train
     split carries consensus scores when WXE or the scb-gt baseline needs
-    them."""
+    them.  ``train_features=False`` builds the train split for its
+    vocabulary alone (evaluation and serving)."""
     shapes = parse_feat_shapes(opt.feat_shapes)
 
     def spec(n):
@@ -131,7 +135,8 @@ def build_splits(opt) -> Tuple[Split, Split]:
     need_consensus = bool(opt.use_consensus_weights) or (
         opt.use_rl and opt.rl_baseline == "scb-gt")
     train = generate("train", spec(opt.synthetic_videos),
-                     consensus=need_consensus)
+                     consensus=need_consensus and train_features,
+                     features=train_features)
     val = generate("val", spec(opt.synthetic_val_videos), vocab=train.vocab,
                    consensus=False)
     return train, val
@@ -151,6 +156,11 @@ class Trainer:
     to skip building them from the options."""
 
     def __init__(self, opt, splits: Optional[Tuple[Split, Split]] = None):
+        if opt.eval_metric not in KNOWN_EVAL_METRICS:
+            # At start-up, not after the first epoch's validation scores
+            # 0.0 for ever.
+            raise ValueError(f"--eval_metric {opt.eval_metric!r} is not one "
+                             f"of {KNOWN_EVAL_METRICS}")
         self.opt = opt
         self.device = default_device(opt.device)
         self.train_split, self.val_split = splits or build_splits(opt)
@@ -177,7 +187,8 @@ class Trainer:
                                     seq_per_img=opt.seq_per_img,
                                     seed=opt.seed, consensus_weights=weights)
         self.val_loader = CaptionLoader(
-            self.val_split, opt.batch_size, seq_per_img=1, shuffle=False)
+            self.val_split, opt.eval_batch_size or opt.batch_size,
+            seq_per_img=1, shuffle=False)
         self.optimizer = Optimizer(
             self.model.parameters(), optim=opt.optim,
             learning_rate=opt.learning_rate, grad_clip=opt.grad_clip,
@@ -441,10 +452,18 @@ class Trainer:
     # -- validation, checkpoints, the loop -----------------------------------
 
     def validate(self) -> Dict[str, float]:
+        """Score the val split.  ``--fast_val 1`` scores CIDEr and the
+        selection metric only (selecting on a metric that is not scored
+        would give every epoch 0.0 and blind the early stop)."""
+        scorers = None
+        if self.opt.fast_val:
+            sel = ("Bleu" if self.opt.eval_metric.startswith("Bleu")
+                   else self.opt.eval_metric)
+            scorers = tuple(dict.fromkeys(("CIDEr", sel)))
         _, scores = eval_split(
             self.model, self.val_loader, self.vocab, self.opt.max_length,
             self.val_split.refs, beam_size=self.opt.val_beam_size,
-            length_norm=self.opt.length_norm,
+            length_norm=self.opt.length_norm, scorers=scorers,
             decode_chunk=self.opt.decode_chunk)
         return scores
 
@@ -502,7 +521,7 @@ class Trainer:
                     self.step = rewind
                     continue
             scores = self.validate()
-            score = scores["CIDEr"]
+            score = scores.get(score_key(opt.eval_metric), 0.0)
             self.history.append({"step": self.step, **scores})
             log.info("val @ step %d (epoch %d): %s", self.step,
                      self.step // bpe, scores)
@@ -518,8 +537,8 @@ class Trainer:
             self._snapshot_good_state(payload)
             if (opt.max_patience and patience >= opt.max_patience
                     and self.step // bpe >= opt.min_epochs):
-                log.info("early stop: no CIDEr-D improvement in %d epochs",
-                         patience)
+                log.info("early stop: no %s improvement in %d epochs",
+                         opt.eval_metric, patience)
                 break
         self._note(self.drain(), total, clock)
         if self.guard is not None:

@@ -55,7 +55,8 @@ def test_sources_found():
     names = {p.name for p in _sources()}
     assert {"chip_smoke.py", "engine.py", "decode_cell_kernel.py",
             "attention_kernel.py", "serve.py", "train.py", "trainer.py",
-            "synthetic.py", "ciderd.py"} <= names
+            "synthetic.py", "ciderd.py", "eval.py", "coco_eval.py",
+            "bleu.py", "meteor.py", "rouge.py"} <= names
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: str(

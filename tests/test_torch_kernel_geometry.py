@@ -61,6 +61,31 @@ def test_gate_row_groups(b, groups):
     assert k2.gate_geometry(b, 512, 512)["row_groups"] == groups
 
 
+#: Width of the learning check's chain (``tools/stage_chain.py``).
+CHAIN = dict(t=29, e=192, h=192, a=192)
+
+
+@pytest.mark.parametrize("elem", [4, 2], ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("b, dims, tiles", [(160, CHAIN, 24),
+                                            (320, SERVING, 64)],
+                         ids=["chain-160", "serving-320"])
+def test_eval_beam_geometry(b, dims, tiles, elem):
+    """The beam-5 eval's K2 batches: 32 videos x 5 beams at the chain's
+    width, 64 x 5 at MSR-VTT's.  The weight stream stays one wave of
+    2-block clusters and the rows go in groups of 8; the attention is a
+    4-block cluster a row."""
+    gate = k2.gate_geometry(b, dims["e"], dims["h"], elem)
+    attn = k1.attention_geometry(b, dims["t"], dims["a"], dims["h"], elem)
+    assert (gate["cluster"], gate["column_tiles"]) == (2, tiles)
+    assert gate["blocks"] == 2 * tiles <= SMS
+    assert gate["row_groups"] == b // 8
+    assert gate["smem_bytes"] <= k1.SMEM_LIMIT
+    assert attn["smem_bytes"] <= k1.SMEM_LIMIT
+    assert attn["blocks"] == attn["cluster"] * b == 4 * b
+    assert (gate["smem_bytes"] + attn["smem_bytes"] + 2 * BLOCK_RESERVED
+            <= SM_SMEM)
+
+
 @pytest.mark.parametrize("args, match", [
     ((8, 512, 20), "multiples of 8"),       # H not a multiple of 8
     ((8, 12, 32), "multiples of 8"),        # E not a multiple of 8

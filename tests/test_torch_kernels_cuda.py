@@ -68,9 +68,10 @@ def test_attention_kernel_matches_plain(cuda, b):
     assert (w - ref_w).abs().max().item() <= TOL
 
 
-@pytest.mark.parametrize("b", [1, 3, 8, 40, 64, 100])
+@pytest.mark.parametrize("b", [1, 3, 8, 40, 64, 100, 320])
 def test_decode_cell_kernel_matches_plain(cuda, b):
-    """B = 64 and 100 take several row groups of the gate kernel."""
+    """B = 64, 100 and 320 take several row groups of the gate kernel
+    (320: the beam-5 eval at 64 videos a batch)."""
     args = [t.to(cuda) for t in _cell_inputs(b, b)]
     before = k2.fused_decode_cell.launches
     c, h = k2.fused_decode_cell(*args)
@@ -79,6 +80,15 @@ def test_decode_cell_kernel_matches_plain(cuda, b):
     ref_c, ref_h = k2.decode_cell_plain(*args)
     assert (c - ref_c).abs().max().item() <= TOL
     assert (h - ref_h).abs().max().item() <= TOL
+
+
+def test_decode_cell_kernel_matches_plain_at_the_chain_width(cuda):
+    """E = H = A = 192, B = 160: the learning check's beam-5 eval (32
+    videos x 5 beams)."""
+    args = [a.to(cuda) for a in _cell_inputs(160, 5, e=192, h=192, a=192)]
+    got = k2.fused_decode_cell(*args)
+    torch.cuda.synchronize()
+    assert _max_err(got, k2.decode_cell_plain(*args)) <= TOL
 
 
 @pytest.mark.parametrize("t", [5, 6])
