@@ -33,7 +33,7 @@ Phases, each printed as it runs; any failure exits non-zero:
    8000, which realises 7752 rows) and a 497-video val split; then XE
    (2 warm-up + 10 timed steps), WXE (3 timed), and CST with the greedy
    baseline on both of its paths, each stage a fresh ``Trainer`` started
-   from the previous one's ``best.pt``.  CST first on the default fused
+   from the previous one's best step.  CST first on the default fused
    path (``--device_rewards 1``: rollout, on-device CIDEr-D, gradient and
    guarded update; the table build, the table bytes and the match
    envelope printed; 1 warm-up + 3 timed steps with the per-phase
@@ -70,13 +70,27 @@ Phases, each printed as it runs; any failure exits non-zero:
    reward and grad split, a profiled step and peak memory.  Every launch
    of phase 8 must be a bfloat16 one;
 9. beam-5 evaluation through ``python -m cst_captioning_tpu_torch.eval``
-   of the CST ``best.pt`` phase 7 wrote: K2 at the eval's 320 rows (64
+   of the CST checkpoint phase 7 wrote: K2 at the eval's 320 rows (64
    videos x 5 beams) against its plain version within 1e-5, with times;
    the 497 val videos decoded with ``--decode_kernel fused``, K2 launched
    exactly twice per executed beam step; the seven scores, decode seconds
    and videos/s, and each scorer's host seconds; ``--engine serving``
    equal to the offline decode on every video; and 12 requests through
-   ``serve --checkpoint_path`` equal to the eval's predictions.
+   ``serve --checkpoint_path`` equal to the eval's predictions;
+10. resume on the card: ``python -m cst_captioning_tpu_torch.train`` in
+   8 processes at phase 7's width and batch (E = H = A = 512, features
+   28 x 2048 + 1 x 4096, 64 x 20 a batch) on a 384-video split of 6
+   batches an epoch whose vocabulary (7777 rows) is within 10% of phase
+   7's: for float32 XE (K1) and fused CST (K1, K2) an uninterrupted
+   twin, a ``--fault_plan preempt@step=N`` run (N mid-epoch; exit 75 and
+   its summary line) and its resume (exit 0); then a ``wedge`` drill with
+   ``--wedge_timeout`` (exit 124) and its resume.  Each resumed run's
+   last checkpoint must be bit-identical to its twin's (parameters,
+   Adam's moments and count, generator states, run state) and its
+   post-resume train losses equal; each process reports its kernel
+   launches in its ``telemetry.json``.  Prints each run's seconds,
+   ``preempt_exit_ms``, the checkpoint save and verify milliseconds and
+   the phase's total.
 
 Each serving phase sets every kernel's launch count to 0 just before it
 and reads the counts just after; a kernel of the path launched other
@@ -88,8 +102,8 @@ dispatched; the fused path builds no host reward.
 
 Output: phase lines as they run; then a JSON object with one entry per
 kernel and storage dtype (``storage``; times at the serving batch B = 8,
-every measured batch under ``by_batch``; launches of phases 4-7 and 9
-for float32, of phase 8 for bfloat16); then the card line (``nvidia-smi``
+every measured batch under ``by_batch``; launches of phases 4-7, 9 and
+10 for float32, of phase 8 for bfloat16); then the card line (``nvidia-smi``
 name and power limit); and last ``{"ok": true, "device": ...}``.
 Without a CUDA device, or run outside a checkout of the repository, the
 script exits non-zero and prints no result.
@@ -136,7 +150,7 @@ TRAIN_BATCH, TRAIN_SEQ = 64, 20
 TRAIN_ROWS = TRAIN_BATCH * TRAIN_SEQ
 ROLLOUT_ROWS = TRAIN_ROWS + TRAIN_BATCH
 TRAIN_VOCAB = 7752
-# Phase 7 writes each stage's best.pt here; phase 9 evaluates CST's.
+# Phase 7 writes each stage's checkpoint here; phase 9 evaluates CST's.
 CKPT_ROOT = os.path.join(HERE, "checkpoints", "chip_smoke")
 # Phase 9: the beam-5 eval at the eval CLI's default batch of 64 videos.
 EVAL_BATCH, EVAL_BEAM = 64, 5
@@ -864,8 +878,8 @@ def train_phase(splits):
 
     def save_best(trainer, stage):
         path = os.path.join(CKPT_ROOT, stage)
-        checkpoint.save(path, checkpoint.BEST,
-                        trainer.checkpoint_payload(0.0, 0.0))
+        checkpoint.CheckpointManager(path).save(
+            trainer.step, trainer.checkpoint_payload(), score=0.0)
         return path
 
     torch.cuda.reset_peak_memory_stats()
@@ -1340,7 +1354,7 @@ def bf16_train_phase(splits) -> dict:
 
 
 def eval_phase(splits, res) -> int:
-    """Phase 9: the beam-5 evaluation of phase 7's CST ``best.pt`` (WXE's
+    """Phase 9: the beam-5 evaluation of phase 7's CST checkpoint (WXE's
     if CST wrote none) through ``python -m cst_captioning_tpu_torch.eval``
     at full width: K2 at the eval's 320 rows against its plain version
     (adds ``res["K2"][320]``); the offline decode of the 497 val videos
@@ -1365,8 +1379,6 @@ def eval_phase(splits, res) -> int:
     from cst_captioning_tpu_torch.serving.buckets import parse_buckets
     from cst_captioning_tpu_torch.serving.engine import ServingEngine
     from cst_captioning_tpu_torch.serving.server import CaptionServer
-    from cst_captioning_tpu_torch.training import checkpoint
-
     flush = torch.empty(FLUSH_BYTES // 4, device="cuda")
     gen = torch.Generator().manual_seed(2468)
     res["K2"][EVAL_ROWS] = check_k2(
@@ -1376,9 +1388,9 @@ def eval_phase(splits, res) -> int:
     del flush
 
     stage = next((s for s in ("cst", "wxe") if os.path.exists(
-        os.path.join(CKPT_ROOT, s, checkpoint.BEST))), None)
+        os.path.join(CKPT_ROOT, s, "infos.json"))), None)
     if stage is None:
-        fail("phase 9: phase 7 wrote no CST or WXE best.pt")
+        fail("phase 9: phase 7 wrote no CST or WXE checkpoint")
     ck = os.path.join(CKPT_ROOT, stage)
     argv = ["--checkpoint_path", ck, "--beam_size", str(EVAL_BEAM),
             "--eval_batch_size", str(EVAL_BATCH), "--max_length",
@@ -1485,6 +1497,218 @@ def eval_phase(splits, res) -> int:
     return launches["fused_decode_cell"]
 
 
+# Phase 10: a training split of 6 batches of 64 x 20 an epoch.  The
+# synthetic generator draws at most 4 + 2 adjectives per 5 captions of a
+# video, so 384 videos need 50 captions each (rich vocabulary 100000) to
+# realise a vocabulary within 10% of phase 7's (7752 rows).
+RESUME_ROOT = os.path.join(HERE, "checkpoints", "chip_smoke_resume")
+RESUME_VIDEOS, RESUME_CAPTIONS, RESUME_RICH = 384, 50, 100000
+RESUME_BPE = RESUME_VIDEOS // TRAIN_BATCH
+RESUME_WEDGE_TIMEOUT = 8.0
+
+
+def resume_args(*extra) -> list:
+    """Train-CLI arguments of phase 10: phase 7's width, batch and
+    kernels (``stage_args``) on the phase-10 split, one epoch, a train
+    record every step and validation on CIDEr-D alone."""
+    return stage_args(
+        "--synthetic_videos", str(RESUME_VIDEOS), "--synthetic_val_videos",
+        "64", "--synthetic_rich_vocab", str(RESUME_RICH),
+        "--captions_per_video", str(RESUME_CAPTIONS), "--max_epochs", "1",
+        "--max_patience", "0", "--log_every", "1", "--fast_val", "1",
+        *extra)
+
+
+def run_train(name: str, argv, expect: int):
+    """One ``python -m cst_captioning_tpu_torch.train`` process; fails
+    unless it exits ``expect``.  -> (the process, its seconds)."""
+    env = dict(os.environ, PYTHONPATH=HERE)
+    env.pop("CST_FAULT_PLAN", None)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "cst_captioning_tpu_torch.train", *argv],
+        cwd=HERE, env=env, capture_output=True, text=True, timeout=300)
+    secs = time.perf_counter() - t0
+    if proc.returncode != expect:
+        print(proc.stderr[-6000:], file=sys.stderr)
+        fail(f"phase 10 {name}: exit {proc.returncode}, {expect} expected")
+    return proc, secs
+
+
+def telemetry(ck: str) -> dict:
+    with open(os.path.join(ck, "telemetry.json")) as f:
+        return json.load(f)
+
+
+def check_resume_launches(name: str, tel: dict, steps: int,
+                          rollouts: bool, validated: bool) -> dict:
+    """The launches a phase-10 process reported in its ``telemetry.json``
+    (counted by the wrappers in that process, from 0): K1 ``MAX_LEN``
+    times per teacher-forced step it trained, K2 an even count when it
+    ran rollouts or validation, nothing in bfloat16.  -> {kernel:
+    launches}."""
+    g = tel["gauges"]
+    k1 = g["launches/fused_additive_attention/float32"]
+    k2 = g["launches/fused_decode_cell/float32"]
+    bf16 = (g["launches/fused_additive_attention/bfloat16"]
+            + g["launches/fused_decode_cell/bfloat16"])
+    if (k1 != MAX_LEN * steps or bf16 or k2 % 2
+            or (k2 > 0) != (rollouts or validated)):
+        fail(f"phase 10 {name}: launches K1 {k1} in {steps} steps "
+             f"({MAX_LEN} a step), K2 {k2}, bfloat16 {bf16}")
+    return {"fused_additive_attention": k1, "fused_decode_cell": k2}
+
+
+def same_state(a_dir: str, b_dir: str, step: int):
+    """Step ``step`` of two stage directories: (every tensor and the run
+    state bit-identical, the number of tensors compared)."""
+    import torch
+
+    from cst_captioning_tpu_torch.training.checkpoint import \
+        CheckpointManager
+
+    a = CheckpointManager(a_dir, readonly=True).load(step=step)
+    b = CheckpointManager(b_dir, readonly=True).load(step=step)
+    pairs = [(a["model"][k], b["model"][k]) for k in a["model"]]
+    pairs.append((a["optimizer"]["count"], b["optimizer"]["count"]))
+    pairs += [(x[k], y[k]) for x, y in zip(a["optimizer"]["state"],
+                                          b["optimizer"]["state"],
+                                          strict=True) for k in x]
+    pairs += [(a["rng"][k], b["rng"][k]) for k in ("dropout", "noise")]
+    same = (a["step"] == b["step"] == step and a["run"] == b["run"]
+            and all(torch.equal(x, y) for x, y in pairs))
+    return same, len(pairs)
+
+
+def train_losses(ck: str) -> dict:
+    with open(os.path.join(ck, "metrics.jsonl")) as f:
+        return {r["step"]: r["loss"] for r in map(json.loads, f)
+                if r["scope"] == "train"}
+
+
+def resume_phase() -> dict:
+    """Phase 10: resume on the card through ``python -m
+    cst_captioning_tpu_torch.train`` at phase 7's width (E = H = A = 512,
+    features 28 x 2048 + 1 x 4096, 64 x 20 a batch, the phase-10 split of
+    6 batches an epoch).  For float32 XE (K1) and for fused CST (K1 and
+    K2, the greedy baseline, from the XE twin's checkpoint): the
+    uninterrupted twin, a ``--fault_plan preempt@step=N`` run (N mid-
+    epoch; exit 75 with the summary line) and its resume (exit 0); then a
+    ``wedge`` drill on XE with ``--wedge_timeout`` (exit 124) and its
+    resume.  Every resumed run's last checkpoint must be bit-identical to
+    its twin's (parameters, optimizer moments and count, generator
+    states, run state), and its post-resume train losses equal.  Prints
+    each run's seconds, the time from the signal to the exit
+    (``preempt_exit_ms``), the checkpoint save and verify milliseconds
+    and the phase's total.  -> {kernel: float32 launches in the phase}."""
+    import shutil
+
+    import numpy as np
+
+    from cst_captioning_tpu_torch import train
+    from cst_captioning_tpu_torch.training.trainer import build_splits
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(RESUME_ROOT, ignore_errors=True)
+    splits = build_splits(train.parse_args(resume_args()),
+                          train_features=False)
+    vocab = splits[0].vocab.size_with_pad
+    print(f"resume data: {splits[0].num_videos} + {splits[1].num_videos} "
+          f"videos x {RESUME_CAPTIONS} captions, {RESUME_BPE} batches of "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ} an epoch, vocabulary {vocab} rows "
+          f"(--synthetic_rich_vocab {RESUME_RICH}; phase 7: {TRAIN_VOCAB})")
+    if abs(vocab - TRAIN_VOCAB) > 0.1 * TRAIN_VOCAB:
+        fail(f"phase 10: vocabulary {vocab} rows, not within 10% of "
+             f"{TRAIN_VOCAB}")
+    del splits
+    total = {"fused_additive_attention": 0, "fused_decode_cell": 0}
+    hists, last = {"ckpt_save_ms": [], "ckpt_verify_ms": []}, RESUME_BPE
+
+    def account(name, ck, steps, rollouts, validated):
+        tel = telemetry(ck)
+        for key, n in check_resume_launches(name, tel, steps, rollouts,
+                                            validated).items():
+            total[key] += n
+        for key, out in hists.items():
+            if key in tel["histograms"]:
+                out.append(tel["histograms"][key])
+        return tel
+
+    def drill(name, args, fault, at, rollouts, twin=None):
+        ck = os.path.join(RESUME_ROOT, name)
+        twin_ck = twin or os.path.join(RESUME_ROOT, f"{name}_twin")
+        if twin is None:
+            _, secs = run_train(f"{name} twin", resume_args(
+                *args, "--checkpoint_path", twin_ck), 0)
+            account(f"{name} twin", twin_ck, last, rollouts, True)
+            print(f"resume {name}: uninterrupted twin {secs:.1f} s")
+        argv = resume_args(*args, "--checkpoint_path", ck, "--fault_plan",
+                           f"{fault}@step={at}", *(
+                               ("--wedge_timeout", str(RESUME_WEDGE_TIMEOUT),
+                                "--save_every_steps", "1")
+                               if fault == "wedge" else ()))
+        if fault == "preempt":
+            proc, secs = run_train(f"{name} preempt", argv, 75)
+            summary = json.loads(proc.stdout.strip().splitlines()[-1])
+            if summary != {"preempted": "SIGTERM", "step": at + 1,
+                           "saved": True, "checkpoint_path": ck}:
+                fail(f"phase 10 {name}: summary line {summary}")
+            tel = account(f"{name} preempt", ck, at + 1, rollouts, False)
+            print(f"resume {name}: preempt@step={at} exited 75 in "
+                  f"{secs:.1f} s, {summary}; preempt_exit_ms "
+                  f"{tel['gauges']['preempt_exit_ms']:.3f}; save "
+                  f"{tel['histograms']['ckpt_save_ms']['mean']:.1f} ms, "
+                  f"verify {tel['histograms']['ckpt_verify_ms']['mean']:.1f}"
+                  f" ms (state.pt "
+                  f"{os.path.getsize(os.path.join(ck, 'recovery', str(at + 1), 'state.pt')) / 2 ** 20:.1f} MiB)")
+        else:
+            proc, secs = run_train(f"{name} wedge", argv, 124)
+            if "WATCHDOG: no progress" not in proc.stderr:
+                fail(f"phase 10 {name}: exit 124 without the watchdog")
+            print(f"resume {name}: wedge@step={at} with --wedge_timeout "
+                  f"{RESUME_WEDGE_TIMEOUT:g} exited 124 in {secs:.1f} s")
+        start = at + 1 if fault == "preempt" else at
+        proc, secs = run_train(f"{name} resume", argv, 0)
+        if f"resumed from step {start}" not in proc.stderr:
+            fail(f"phase 10 {name}: the rerun did not resume from step "
+                 f"{start}")
+        tel = account(f"{name} resume", ck, last - start, rollouts, True)
+        same, n = same_state(ck, twin_ck, last)
+        mine, theirs = train_losses(ck), train_losses(twin_ck)
+        losses_same = all(mine[s] == theirs[s]
+                          for s in range(start + 1, last + 1))
+        print(f"resume {name}: rerun resumed from step {start} and ran to "
+              f"{last} in {secs:.1f} s (restore verify "
+              f"{tel['histograms']['ckpt_verify_ms']['mean']:.1f} ms); step "
+              f"{last} bit-identical to the twin on {n} tensors and the run "
+              f"state: {same}; train losses of steps {start + 1}-{last} "
+              f"equal: {losses_same} (last {mine[last]:.6f})")
+        if not (same and losses_same):
+            fail(f"phase 10 {name}: the resumed run differs from its "
+                 "uninterrupted twin")
+        if not np.isfinite(mine[last]):
+            fail(f"phase 10 {name}: loss not finite")
+        return twin_ck
+
+    xe_twin = drill("xe", (), "preempt", 1, rollouts=False)
+    drill("cst", ("--use_rl", "1", "--rl_baseline", "greedy",
+                  "--learning_rate", "2e-5", "--start_from", xe_twin),
+          "preempt", 2, rollouts=True)
+    drill("xe_wedge", (), "wedge", 3, rollouts=False, twin=xe_twin)
+    summary = {}
+    for key, hs in hists.items():
+        n = sum(h["count"] for h in hs)
+        summary[key] = (n, sum(h["sum"] for h in hs) / n,
+                        max(h["max"] for h in hs))
+    print("resume checkpoints: " + "; ".join(
+        f"{key} mean {mean:.1f} max {top:.1f} over {n}"
+        for key, (n, mean, top) in summary.items())
+        + f"; launches {total}")
+    print(f"resume phase: {time.perf_counter() - t_phase:.1f} s")
+    shutil.rmtree(RESUME_ROOT, ignore_errors=True)
+    return total
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "cst_captioning_tpu_torch")):
         print("chip_smoke: no cst_captioning_tpu_torch package beside "
@@ -1560,17 +1784,24 @@ def main() -> int:
 
     # Phase 9: beam-5 evaluation of phase 7's checkpoint, K2 at 320 rows.
     e_launch = eval_phase(splits, measured)
+    del splits
+
+    # Phase 10: preemption, the wedge watchdog and resume through the
+    # train CLI, each resumed run bit-identical to its twin.
+    resume_launch = resume_phase()
 
     # The kernels line: one entry per kernel and storage dtype.  Launches:
-    # float32 from phases 4-7 and 9, bfloat16 from phase 8; times at B=8, the
+    # float32 from phases 4-7, 9 and 10, bfloat16 from phase 8; times at B=8, the
     # greedy serving batch (8-slot bucket), every measured batch under
     # ``by_batch``.
     launches = {
         ("K1", "float32"): r_launch["fused_additive_attention"]
-        + t_launch["fused_additive_attention"],
+        + t_launch["fused_additive_attention"]
+        + resume_launch["fused_additive_attention"],
         ("K2", "float32"): g_launch["fused_decode_cell"]
         + beam_launch["fused_decode_cell"]
-        + t_launch["fused_decode_cell"] + e_launch,
+        + t_launch["fused_decode_cell"] + e_launch
+        + resume_launch["fused_decode_cell"],
         ("K1", "bfloat16"): s_launch["fused_additive_attention/bfloat16"]
         + bt_launch["fused_additive_attention/bfloat16"],
         ("K2", "bfloat16"): s_launch["fused_decode_cell/bfloat16"]

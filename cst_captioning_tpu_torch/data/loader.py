@@ -7,8 +7,9 @@ filled from the next epoch, each video's ``seq_per_img`` caption rows
 are drawn from the same generator (without replacement when the video
 has enough captions), and the WXE weights of the drawn rows ride along.
 ``iter_eval`` is one ordered pass whose last batch wraps around to the
-first videos (callers dedupe by video id).  No prefetch threads, sharding
-or fault hooks.
+first videos (callers dedupe by video id).  ``skip_batches(n)`` replays
+the draws of ``n`` batches without assembling them, the data half of a
+bit-identical resume.  No prefetch threads, sharding or fault hooks.
 
 ``host_feats`` is the cast on the host before the copy
 (``--bf16_feats``): a batch's features as host tensors in the dtype they
@@ -97,6 +98,17 @@ class CaptionLoader:
         else:
             sel = self._rng.choice(n, self.seq_per_img, replace=True)
         return np.sort(sel)
+
+    def skip_batches(self, n: int) -> None:
+        """Fast-forward the stream by ``n`` batches without assembling
+        them: the epoch shuffles and caption-row selections ``next_batch``
+        would have drawn, and nothing else.  A run resumed at step ``n``
+        then reads the batches an uninterrupted run of the same seed reads
+        from step ``n`` on."""
+        for _ in range(max(0, int(n))):
+            for v in self._next_indices(self.batch_size):
+                self._select_caption_rows(
+                    int(self.ds.label_end[v] - self.ds.label_start[v]))
 
     def next_batch(self) -> Batch:
         ix = self._next_indices(self.batch_size)

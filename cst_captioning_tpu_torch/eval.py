@@ -3,7 +3,7 @@
     python -m cst_captioning_tpu_torch.eval --checkpoint_path ck/cst \\
         --beam_size 5 --result_file scores.json
 
-Loads ``best.pt`` of a directory the train CLI wrote and rebuilds the
+Loads the best verified step of a directory the train CLI wrote and rebuilds the
 model from the options saved in it: the architecture comes from the
 checkpoint, and of this CLI's flags only ``--max_length`` overrides it
 (the decode length; the data keep the checkpoint's).  The data are the
@@ -52,7 +52,7 @@ log = logging.getLogger("cst_captioning_tpu_torch.eval")
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--checkpoint_path", required=True,
-                   help="a directory the train CLI wrote (best.pt)")
+                   help="a directory the train CLI wrote (its best step)")
     p.add_argument("--beam_size", type=int, default=5)
     p.add_argument("--length_norm", type=float, default=0.0)
     p.add_argument("--decode_chunk", type=int, default=8)
@@ -83,11 +83,11 @@ def load_checkpoint_model(checkpoint_path: str, device: torch.device,
                           decode_kernel: str = "reference",
                           pallas_attention: int = 0
                           ) -> Tuple[Any, Vocab, Split, argparse.Namespace]:
-    """Rebuild ``best.pt`` of a train-CLI directory -> (model in eval
+    """Rebuild the best step of a train-CLI directory -> (model in eval
     mode on ``device``, vocabulary, val split, the training options).
     The architecture and the data spec come from the options saved in the
     checkpoint; the decode cell from the arguments."""
-    saved = checkpoint.load(checkpoint_path, checkpoint.BEST)
+    saved = checkpoint.load(checkpoint_path)
     opt = train_args([])
     vars(opt).update(saved["opt"])
     opt.use_consensus_weights, opt.use_rl = 0, 0     # no consensus scores

@@ -15,8 +15,8 @@ Three backends.  The first two serve a seeded feature table (ids ``v0``
   ``"a/b/c"``-keyed npz of the reference's Flax parameter tree and its
   ``{id: word}`` vocabulary.  Widths come from the weights; the feature
   dims of ``--feat_shapes`` must match them.
-- **a trained checkpoint** (``--checkpoint_path``): ``best.pt`` of a
-  directory the train CLI wrote, rebuilt as ``eval.py`` rebuilds it (the
+- **a trained checkpoint** (``--checkpoint_path``): the best step of
+  a directory the train CLI wrote, rebuilt as ``eval.py`` rebuilds it (the
   architecture from the checkpoint's saved options; ``--decode_kernel``
   and ``--pallas_attention`` from this CLI).  Video ids are those of the
   checkpoint's synthetic val split (``val_video{i}``) with that split's
@@ -55,7 +55,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--serve_demo", type=int, default=0)
     p.add_argument("--checkpoint_path", default="",
-                   help="serve best.pt of a train-CLI directory on its val "
+                   help="serve the best step of a train-CLI directory on its val "
                         "split's videos")
     p.add_argument("--params_npz", default="")
     p.add_argument("--vocab_json", default="")

@@ -32,13 +32,10 @@ from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 
+from ..resilience.exitcodes import EXIT_OK, EXIT_PREEMPTED
 from .engine import Completion, ServingEngine
 
 IDLE_SLEEP_S = 0.002     # scheduler nap when idle with nothing to read
-
-# Exit codes, copied from the reference's resilience/exitcodes.py.
-EXIT_OK = 0
-EXIT_PREEMPTED = 75          # sysexits.h EX_TEMPFAIL: drained + exited
 
 
 class PreemptionHandler:

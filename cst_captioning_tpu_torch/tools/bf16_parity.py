@@ -4,7 +4,7 @@ reference's ``scripts/bf16_parity.py``).
     python -m cst_captioning_tpu_torch.tools.bf16_parity \\
         --checkpoint_path ck/cst [--beam_size 1] [--use_bfloat16 0]
 
-Loads ``best.pt`` of one of the port's training runs and rebuilds the
+Loads the best step of one of the port's training runs and rebuilds the
 synthetic val split of its options (``eval.load_checkpoint_model``: the
 same spec and seed), decodes every val video with the model's float32 cell
 (``--decode_kernel reference``) and with the bfloat16 variant
@@ -26,7 +26,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import os
 import sys
 
 import torch
@@ -37,7 +36,6 @@ from ..eval import load_checkpoint_model
 from ..metrics.coco_eval import language_eval
 from ..ops.bf16_decode import (DEFAULT_CIDER_DELTA_BOUND,
                                bf16_decode_supported, parity_gate)
-from ..training import checkpoint
 from ..training.evaluation import decode_split
 
 EXIT_OK, EXIT_OUTSIDE, EXIT_USAGE = 0, 1, 2
@@ -46,7 +44,7 @@ EXIT_OK, EXIT_OUTSIDE, EXIT_USAGE = 0, 1, 2
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--checkpoint_path", required=True,
-                   help="a directory the train CLI wrote (best.pt)")
+                   help="a directory the train CLI wrote (its best step)")
     p.add_argument("--beam_size", type=int, default=1)
     p.add_argument("--length_norm", type=float, default=0.0)
     p.add_argument("--decode_chunk", type=int, default=8)
@@ -59,14 +57,13 @@ def main(argv=None) -> int:
     p.add_argument("--device", default=None,
                    help="torch device; default cuda (raises without a GPU)")
     args = p.parse_args(argv)
-    if not os.path.exists(os.path.join(args.checkpoint_path,
-                                       checkpoint.BEST)):
-        print(f"bf16_parity: no {checkpoint.BEST} in "
-              f"{args.checkpoint_path}", file=sys.stderr)
-        return EXIT_USAGE
     device = default_device(args.device)
-    model, vocab, val, opt = load_checkpoint_model(args.checkpoint_path,
-                                                   device)
+    try:
+        model, vocab, val, opt = load_checkpoint_model(args.checkpoint_path,
+                                                       device)
+    except FileNotFoundError as e:
+        print(f"bf16_parity: {e}", file=sys.stderr)
+        return EXIT_USAGE
     if args.use_bfloat16 is not None:
         model = model.clone(dtype=torch.bfloat16 if args.use_bfloat16
                             else torch.float32)

@@ -24,8 +24,18 @@ the reference's chain ran.  ``--stages cst`` with ``--cst_baseline`` /
 ``--cst_temperature`` / ``--cst_device_rewards`` runs another CST stage
 from the same WXE checkpoint, into its own directory.
 
+Each stage logs a train record every 10 steps and a val record per
+epoch to ``metrics.jsonl`` in its checkpoint directory, as the
+reference's chain did (``artifacts/cpu512_healthy/*/metrics.jsonl``).  A
+stage that exits resumable (75, preempted after a verified save) or
+wedged (124, the watchdog of ``--wedge_timeout``) is run again and
+resumes from its newest verified checkpoint, after the reference's
+``scripts/scale_chain.py`` ``run_stage`` (without its device probe);
+``MAX_STAGE_ATTEMPTS`` consecutive attempts that leave the stage's
+checkpoints where they were abort the chain.
+
 The ``eval`` stage (on by default, after ``cst``) runs the eval CLI at
-beam 5, batch 32 and max_length 30 (K2 at 160 rows) on the ``best.pt`` of
+beam 5, batch 32 and max_length 30 (K2 at 160 rows) on the best step of
 every stage directory this chain has written (the CST directory of the
 ``--cst_*`` options), writes ``{stage}_beam5.json`` into ``--out_dir``
 and prints Bleu_1-4, METEOR_approx, ROUGE_L and CIDEr beside the
@@ -40,6 +50,13 @@ import os
 import subprocess
 import sys
 import time
+
+from ..resilience import exitcodes
+
+#: Consecutive resumable or wedged attempts of a stage that move none of
+#: its checkpoints before the chain gives up (the reference harness's
+#: ``--max_stage_attempts`` default).
+MAX_STAGE_ATTEMPTS = 4
 
 #: Best val CIDEr-D per stage of the reference's chain
 #: (artifacts/cpu512_healthy/report.md).
@@ -73,7 +90,7 @@ def stage_argv(out_dir: str, xe_patience: int = 25,
               "--batch_size", "32", "--seq_per_img", "20",
               "--rnn_size", "192", "--input_encoding_size", "192",
               "--att_size", "192", "--max_length", "30", "--seed", "123",
-              "--decode_chunk", "8", "--log_every", "50",
+              "--decode_chunk", "8", "--log_every", "10",
               "--fast_val", "1", "--eval_metric", "CIDEr",
               "--pallas_attention", "1", "--decode_kernel", "fused",
               "--use_bfloat16", str(use_bfloat16)]
@@ -107,6 +124,59 @@ def stage_argv(out_dir: str, xe_patience: int = 25,
     }
 
 
+def stage_fingerprint(stage_dir: str) -> tuple:
+    """The stage's progress on disk: ``infos.json``'s last and best step
+    and the checkpoint steps of both sets.  Not ``metrics.jsonl``: a
+    resume re-logs the steps it replays, which is no progress."""
+    marks = []
+    try:
+        with open(os.path.join(stage_dir, "infos.json")) as f:
+            infos = json.load(f)
+        marks.append(("infos", infos.get("last_step"),
+                      infos.get("best_step")))
+    except (OSError, ValueError):
+        pass
+    for sub in (".", "recovery"):
+        try:
+            steps = sorted(e for e in os.listdir(os.path.join(stage_dir, sub))
+                           if e.isdigit())
+        except OSError:
+            steps = []
+        marks.append((sub, tuple(steps)))
+    return tuple(marks)
+
+
+def run_stage(name: str, cmd: list, stage_dir: str, log_path: str,
+              max_attempts: int) -> subprocess.CompletedProcess:
+    """Run one stage to its end, running it again after a resumable
+    (75) or wedge (124) exit; it resumes from its newest verified
+    checkpoint.  Gives up after ``max_attempts`` consecutive attempts
+    that did not move the stage's checkpoints, and on any other exit.
+    -> the last attempt (stderr of every attempt in ``log_path``)."""
+    no_progress, last_fp, attempt = 0, stage_fingerprint(stage_dir), 0
+    with open(log_path, "w") as log:
+        while True:
+            attempt += 1
+            proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=log,
+                                  text=True, check=False)
+            kind = exitcodes.classify(proc.returncode)
+            if proc.returncode == 0 or kind not in (exitcodes.RESUMABLE,
+                                                    exitcodes.WEDGE):
+                return proc
+            fp = stage_fingerprint(stage_dir)
+            no_progress = 0 if fp != last_fp else no_progress + 1
+            last_fp = fp
+            print(f"stage {name}: attempt {attempt} exited "
+                  f"{proc.returncode} ({exitcodes.describe(proc.returncode)})"
+                  f"; {'progress' if no_progress == 0 else 'no progress'}, "
+                  "running it again", flush=True)
+            if no_progress >= max_attempts:
+                print(f"stage {name}: {no_progress} consecutive attempts "
+                      "made no progress on disk; giving up",
+                      file=sys.stderr)
+                return proc
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--out_dir", required=True)
@@ -129,6 +199,10 @@ def main(argv=None) -> int:
                    help="CST's reward: 1 = the fused on-device CIDEr-D "
                         "step (the reference chain's device_rewards 1), "
                         "0 = the host reward pipeline")
+    p.add_argument("--wedge_timeout", type=float, default=0.0,
+                   help="each train stage's --wedge_timeout (exit 124 and "
+                        "a resumed attempt after that many seconds without "
+                        "progress); 0 = off")
     args = p.parse_args(argv)
     os.makedirs(args.out_dir, exist_ok=True)
     stages = stage_argv(args.out_dir, args.xe_max_patience,
@@ -145,11 +219,11 @@ def main(argv=None) -> int:
         ck_dir = stages[name][stages[name].index("--checkpoint_path") + 1]
         log_path = os.path.join(args.out_dir,
                                 f"{os.path.basename(ck_dir)}.log")
-        with open(log_path, "w") as log:
-            proc = subprocess.run(
-                [sys.executable, "-m", "cst_captioning_tpu_torch.train",
-                 *stages[name]], stdout=subprocess.PIPE, stderr=log,
-                text=True, check=False)
+        proc = run_stage(
+            name, [sys.executable, "-m", "cst_captioning_tpu_torch.train",
+                   *stages[name], "--wedge_timeout",
+                   str(args.wedge_timeout)],
+            ck_dir, log_path, MAX_STAGE_ATTEMPTS)
         if proc.returncode != 0:
             print(f"stage {name} failed with exit code {proc.returncode}; "
                   f"see {log_path}", file=sys.stderr)
@@ -175,13 +249,13 @@ def main(argv=None) -> int:
 
 
 def eval_stage(out_dir: str, stages: dict):
-    """Beam-5 eval of each stage's ``best.pt`` -> {stage: scores}, or
-    None when an eval failed."""
+    """Beam-5 eval of each stage's best step -> {stage: scores}, or None
+    when an eval failed."""
     scores = {}
     for name in ("xe", "wxe", "cst"):
         argv = stages[name]
         ck_dir = argv[argv.index("--checkpoint_path") + 1]
-        if not os.path.exists(os.path.join(ck_dir, "best.pt")):
+        if not os.path.exists(os.path.join(ck_dir, "infos.json")):
             continue
         result = os.path.join(out_dir, f"{name}_beam5.json")
         t0 = time.perf_counter()

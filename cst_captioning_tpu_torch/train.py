@@ -25,6 +25,19 @@ with ``language_eval`` (``--fast_val 1``: CIDEr and the selection metric
 only) and ``--eval_metric`` picks the best checkpoint.  The last line of
 standard output is a JSON summary: best score, its step, the last step,
 the metric and the checkpoint directory.
+
+A run into a ``--checkpoint_path`` that holds checkpoints resumes from
+its newest verified step and ends bit-identical to an uninterrupted run
+(``training/trainer.py``).  Resilience flags, with the reference's names
+and defaults: ``--max_checkpoints``, ``--save_every_steps``,
+``--save_interval_secs``, ``--wedge_timeout``, ``--fault_plan`` (or
+``CST_FAULT_PLAN``) and ``--abort_on_negative_advantage_window``.  Exit
+codes (``resilience/exitcodes.py``): 0 done; 2 a usage error (a malformed
+fault plan too); 4 the negative-advantage abort, with one JSON line
+``{"aborted", "detail"}``; 75 preempted by SIGTERM or a first SIGINT
+after a verified save, with one JSON line ``{"preempted", "step",
+"saved", "checkpoint_path"}``; 124 the watchdog saw no progress for
+``--wedge_timeout`` seconds.
 """
 
 from __future__ import annotations
@@ -32,11 +45,25 @@ from __future__ import annotations
 import argparse
 import json
 import logging
+import os
 import sys
 
 from .metrics.coco_eval import KNOWN_EVAL_METRICS
+from .resilience.exitcodes import EXIT_ADVANTAGE_ABORT, EXIT_OK, EXIT_PREEMPTED
+from .resilience.faults import FaultPlan
+from .resilience.preemption import PreemptedExit, PreemptionHandler
 from .training.state import OPTIMIZERS
-from .training.trainer import Trainer
+from .training.trainer import NegativeAdvantageAbort, Trainer
+
+
+def _fault_plan(text: str) -> str:
+    """argparse type of ``--fault_plan``: a malformed plan is a usage
+    error (exit 2) naming the bad spec, not a start-up traceback."""
+    try:
+        FaultPlan.parse(text)
+    except ValueError as e:
+        raise argparse.ArgumentTypeError(str(e)) from None
+    return text
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -125,6 +152,35 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="consecutive non-finite steps before a rollback")
     g.add_argument("--divergence_max_rollbacks", type=int, default=2,
                    help="rollbacks before the run aborts as unrecoverable")
+    g.add_argument("--max_checkpoints", type=int, default=2,
+                   help="scored checkpoints kept, by score (the best one "
+                        "always among them)")
+    g.add_argument("--save_every_steps", type=int, default=0,
+                   help="a recovery checkpoint every N steps between epoch "
+                        "boundaries (0 = epoch boundaries only)")
+    g.add_argument("--save_interval_secs", type=float, default=0.0,
+                   help="a recovery checkpoint once this many seconds have "
+                        "passed since the last save, checked at step "
+                        "boundaries; 0 disables")
+    g.add_argument("--wedge_timeout", type=float, default=0.0,
+                   help="seconds without training-loop progress before the "
+                        "process exits 124 for a checkpointed resume; set "
+                        "above the longest legitimate gap (start-up, one "
+                        "epoch's validation); 0 disables")
+    g.add_argument("--abort_on_negative_advantage_window", type=int,
+                   default=0,
+                   help="1 = exit 4 when every logged advantage of a "
+                        "five-step window is negative with mean < -0.05; "
+                        "0 = warn once and continue")
+    # The environment's plan is the default, so argparse validates it
+    # like a flag's.
+    g.add_argument("--fault_plan",
+                   default=os.environ.get("CST_FAULT_PLAN") or None,
+                   type=_fault_plan,
+                   help="drills only: comma-separated fault specs, e.g. "
+                        "'preempt@step=3,wedge@step=5,nan_grad@step=2*3,"
+                        "ckpt_torn@step=4' (kind@step=N, kind@batch=N, "
+                        "kind@step=N*K); default: $CST_FAULT_PLAN")
     g = p.add_argument_group("validation and run")
     g.add_argument("--max_length", type=int, default=30,
                    help="label length and decode length")
@@ -141,7 +197,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     g.add_argument("--decode_chunk", type=int, default=8)
     g.add_argument("--checkpoint_path", default="checkpoints/run")
     g.add_argument("--start_from", default=None,
-                   help="warm-start the parameters from DIR/best.pt")
+                   help="warm-start the parameters from the best "
+                        "verified step of DIR")
     g.add_argument("--log_every", type=int, default=20)
     g.add_argument("--device", default=None,
                    help="torch device; default cuda (raises without a GPU)")
@@ -168,13 +225,32 @@ def main(argv=None) -> int:
     opt = parse_args(argv)
     logging.basicConfig(level=logging.INFO, stream=sys.stderr,
                         format="%(asctime)s %(name)s: %(message)s")
-    result = Trainer(opt).train()
+    # Before the Trainer's slow start-up: a SIGTERM during it is honored
+    # at the first step boundary.
+    preemption = PreemptionHandler().install()
+    try:
+        trainer = Trainer(opt, preemption=preemption)
+        try:
+            result = trainer.train()
+        except NegativeAdvantageAbort as e:
+            print(json.dumps({"aborted": "negative_advantage_window",
+                              "detail": str(e)}))
+            return EXIT_ADVANTAGE_ABORT
+        except PreemptedExit as e:
+            print(json.dumps({"preempted": e.signal_name, "step": e.step,
+                              "saved": e.saved,
+                              "checkpoint_path": opt.checkpoint_path}))
+            return EXIT_PREEMPTED
+        finally:
+            trainer.close()
+    finally:
+        preemption.uninstall()
     print(json.dumps({"best_score": result["best_score"],
                       "best_step": result["best_step"],
                       "last_step": result["last_step"],
                       "eval_metric": opt.eval_metric,
                       "checkpoint_path": opt.checkpoint_path}))
-    return 0
+    return EXIT_OK
 
 
 if __name__ == "__main__":

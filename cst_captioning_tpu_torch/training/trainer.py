@@ -4,9 +4,9 @@
 The stage runs an epoch loop over the training split: one update per
 batch, validation at every epoch boundary (greedy decode by default,
 ``language_eval``'s scores; ``--eval_metric`` selects the model and
-``--fast_val 1`` scores CIDEr and that metric only), ``best.pt`` on a new
-best score, ``last.pt`` every epoch, and an early
-stop after ``max_patience`` epochs without improvement (not before
+``--fast_val 1`` scores CIDEr and that metric only), a scored checkpoint
+of the step at every epoch boundary (``training/checkpoint.py``), and an
+early stop after ``max_patience`` epochs without improvement (not before
 ``min_epochs``).  The learning rate decays by ``learning_rate_decay_rate``
 every ``learning_rate_decay_every`` epochs, counted in updates as the
 reference counts them.
@@ -26,6 +26,43 @@ stage rolls back to a host copy of the state taken at the last
 checkpoint save, drops the pipeline's in-flight rollouts and re-seeds
 the rollout noise (``rollout_seed``).
 
+Resilience, after the reference's trainer:
+
+- **resume.**  A stage started into a directory that holds checkpoints
+  resumes from the newest verified step: parameters, the optimizer's
+  count and moments, the states of the dropout and rollout-noise
+  generators (the port's own hazard: the reference folds the step into a
+  stateless key, the port draws from stateful device generators), the
+  divergence guard's salt, the best score and its step, the patience and
+  the validation history; then the loader replays the draws of the steps
+  already taken (``CaptionLoader.skip_batches``).  A resumed stage ends
+  bit-identical to an uninterrupted run of the same seed.  One exception,
+  the reference's too: on the host-reward path (``--device_rewards 0``)
+  a mid-epoch preemption drains the pipeline, which the uninterrupted
+  run does not, so that path is bit-identical only when it is preempted
+  at an epoch boundary.  A stage that already stopped early does nothing
+  when it is run again.
+- **saves.**  ``--save_every_steps`` and ``--save_interval_secs`` add
+  recovery saves between epoch boundaries; each save refreshes the
+  divergence guard's rollback snapshot and fsyncs ``metrics.jsonl``.
+- **preemption.**  With a ``PreemptionHandler`` (``train.py`` installs
+  one), SIGTERM or a first SIGINT is honored at the next step boundary:
+  drain, a verified save unless the newest checkpoint already holds the
+  step, then ``PreemptedExit`` (exit 75).
+- **the watchdog.**  ``--wedge_timeout`` arms a ``ProgressWatchdog``
+  before the first CUDA call; a loop that stops beating exits 124.
+- **drills.**  ``--fault_plan`` (``resilience/faults.py``): ``preempt``
+  sends this process a real SIGTERM, ``wedge`` blocks the loop,
+  ``nan_grad`` feeds NaN inputs, ``ckpt_torn`` tears a saved step.
+- **metrics.**  ``metrics.jsonl`` takes a train record every
+  ``--log_every`` steps (the reference's keys) and a val record per
+  epoch; ``telemetry.json`` on ``close()`` holds the counters, the
+  checkpoint save and verify milliseconds, ``preempt_exit_ms`` and the
+  kernels' launch counts of this process.
+- ``--abort_on_negative_advantage_window``: the reference's five-step
+  detector of the negative-advantage regime warns once, or raises
+  ``NegativeAdvantageAbort`` (exit 4).
+
 Data are in-memory synthetic splits (``data/synthetic.py``); with
 ``--device_feats 1`` every training video's features stay on the card
 and batches gather them by ``Batch.video_ix``.  ``--use_bfloat16 1``
@@ -39,12 +76,13 @@ dropout masks and the rollout noise (on the device).
 
 from __future__ import annotations
 
-import json
 import logging
 import os
+import signal
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from .. import default_device
@@ -56,10 +94,15 @@ from ..metrics.coco_eval import KNOWN_EVAL_METRICS, score_key
 from ..metrics.consensus import normalize_weights
 from ..metrics.tokenizer import tokenize_corpus
 from ..models.captioner import CaptionModel
+from ..ops import launch_counts_by_dtype
 from ..ops.device_ciderd import (auto_ref_chunk, match_tensor_bytes,
                                  table_bytes)
 from ..ops.sampling import gumbel_noise
+from ..resilience.faults import FaultPlan
 from ..resilience.guard import DivergenceGuard
+from ..resilience.preemption import PreemptedExit, PreemptionHandler
+from ..telemetry.registry import JsonlSink, MetricsRegistry
+from ..utils.watchdog import ProgressWatchdog
 from ..weights import init_like_flax_
 from . import checkpoint
 from .device_rewards import build_device_tables
@@ -73,6 +116,17 @@ log = logging.getLogger(__name__)
 
 #: One completed update: (its step index, its metrics).
 Completed = List[Tuple[int, Dict[str, Any]]]
+
+#: The metrics of a train record in ``metrics.jsonl``, where the step has
+#: them (the keys of the reference's records; ``lr`` and
+#: ``captions_per_sec`` are added).
+TRAIN_RECORD_KEYS = ("advantage", "baseline", "grad_norm", "loss", "reward",
+                     "sample_len")
+
+
+class NegativeAdvantageAbort(RuntimeError):
+    """``--abort_on_negative_advantage_window 1`` and the detector fired;
+    ``train.py`` maps it to exit 4."""
 
 
 def rollout_seed(seed: int, salt: int = 0) -> int:
@@ -153,28 +207,70 @@ def build_model(opt, vocab_size: int, feat_dims) -> CaptionModel:
 
 class Trainer:
     """One stage on one device.  ``splits`` (train, val) may be passed in
-    to skip building them from the options."""
+    to skip building them from the options; ``preemption`` is the
+    installed ``PreemptionHandler`` whose flag the loop honors (None: the
+    loop reads no signal flag)."""
 
-    def __init__(self, opt, splits: Optional[Tuple[Split, Split]] = None):
+    def __init__(self, opt, splits: Optional[Tuple[Split, Split]] = None,
+                 preemption: Optional[PreemptionHandler] = None):
         if opt.eval_metric not in KNOWN_EVAL_METRICS:
             # At start-up, not after the first epoch's validation scores
             # 0.0 for ever.
             raise ValueError(f"--eval_metric {opt.eval_metric!r} is not one "
                              f"of {KNOWN_EVAL_METRICS}")
         self.opt = opt
+        self._preempt = preemption
+        self.registry = registry = MetricsRegistry()
+        self.registry.declare("preempt_signals", "preempt_saves",
+                              "negative_advantage_aborts")
+        self._sink_open = False
+        # The loop's step, mirrored on the host for the watchdog thread.
+        self._progress = progress = {"loop_step": -1}
+        # Armed before the first CUDA call: a card that hangs while its
+        # context is created must still end in 124.  describe and payload
+        # read host state only, and close over the registry and
+        # ``progress``, not the trainer: a trainer in no reference cycle
+        # frees its device memory as soon as it is dropped.
+        ck = os.path.abspath(opt.checkpoint_path)
+        self._watchdog = ProgressWatchdog(
+            opt.wedge_timeout,
+            describe=lambda: (f"last loop step {progress['loop_step']}; "
+                              f"checkpoints in {ck}"),
+            heartbeat_path=os.path.join(ck, "heartbeat.json"),
+            payload=lambda: {**progress, **registry.heartbeat_payload()}
+        ).start()
+        try:
+            self._init(opt, splits)
+        except BaseException:
+            self._watchdog.stop()
+            raise
+
+    def _init(self, opt, splits) -> None:
+        self._faults = FaultPlan.parse(opt.fault_plan)
+        if self._faults is not None:
+            self._faults.bind_metrics(self.registry)
+            # Firings persist beside the checkpoints, so a drill that
+            # kills its process does not fire again in its resume.
+            os.makedirs(opt.checkpoint_path, exist_ok=True)
+            self._faults.bind_state(os.path.join(
+                opt.checkpoint_path, "fault_plan_state.jsonl"))
+            log.warning("FAULT INJECTION ARMED: %s; this run breaks itself "
+                        "on purpose", self._faults)
         self.device = default_device(opt.device)
         self.train_split, self.val_split = splits or build_splits(opt)
+        self._watchdog.beat()
         self.vocab = self.train_split.vocab
         self.model = build_model(
             opt, self.vocab.size_with_pad,
             [f.shape[-1] for f in self.train_split.feats])
         init_like_flax_(self.model, torch.Generator().manual_seed(opt.seed))
         if opt.start_from:
-            prev = checkpoint.load(opt.start_from, checkpoint.BEST)
+            prev = checkpoint.load(opt.start_from)
             self.model.load_state_dict(prev["model"])
             log.info("warm-started from %s (step %s, score %s)",
                      opt.start_from, prev["step"], prev["best_score"])
         self.model.to(self.device)
+        self._watchdog.beat()
         self.feat_dtype = feat_dtype(opt.use_bfloat16, opt.bf16_feats)
         log.info("compute dtype %s (parameters float32), features %s",
                  self.model.dtype, self.feat_dtype)
@@ -216,9 +312,47 @@ class Trainer:
                 self._setup_fused_rl()
             else:
                 self._setup_host_rl()
+        self._watchdog.beat()
         self.step = 0
         self.last_rollout_steps = 0
         self.history: List[Dict[str, float]] = []
+        self.best, self.best_step, self.patience = float("-inf"), None, 0
+        self._captions = 0          # dispatched since the last train record
+        self._last_saved_step = -1
+        self._last_save_monotonic = time.monotonic()
+        self.ckpt = checkpoint.CheckpointManager(
+            opt.checkpoint_path, max_to_keep=opt.max_checkpoints,
+            fault_plan=self._faults, registry=self.registry)
+        resume = self.ckpt.latest_verified_step
+        if resume is not None:
+            latest = self.ckpt.latest_step
+            if latest != resume:
+                log.warning("newest checkpoint (step %d) failed integrity "
+                            "verification; resuming from the last verified "
+                            "step %d instead", latest, resume)
+            self._restore(self.ckpt.load(step=resume))
+            log.info("resumed from step %d in %s", resume,
+                     opt.checkpoint_path)
+        elif self.ckpt.latest_step is not None:
+            log.warning("every checkpoint in %s failed integrity "
+                        "verification; starting this stage from scratch",
+                        opt.checkpoint_path)
+
+    def _restore(self, payload: Dict[str, Any]) -> None:
+        """Resume from a checkpoint payload: the state, the generators,
+        the run's bookkeeping, then the loader's stream and the rollback
+        snapshot."""
+        self.model.load_state_dict(payload["model"])
+        self.optimizer.load_state_dict(payload["optimizer"])
+        self.dropout_gen.set_state(payload["rng"]["dropout"])
+        self.noise_gen.set_state(payload["rng"]["noise"])
+        self._rng_salt = payload["rng"]["salt"]
+        run = payload["run"]
+        self.best, self.best_step = run["best"], run["best_step"]
+        self.patience, self.history = run["patience"], run["history"]
+        self.step = self._last_saved_step = payload["step"]
+        self.loader.skip_batches(self.step)
+        self._snapshot_good_state(payload)
 
     # -- set-up --------------------------------------------------------------
 
@@ -394,10 +528,32 @@ class Trainer:
     def iteration(self) -> Completed:
         """Dispatch one update; -> the updates completed by this call
         (one, or for the host-reward pipeline 0 or 1)."""
-        batch = self.loader.next_batch()
+        batch = self._nan_fault_inputs(self.step, self.loader.next_batch())
+        self._captions += self.opt.batch_size * self.opt.seq_per_img
         if self.opt.use_rl:
             return self.rl_iteration(batch)
         return self.xe_iteration(batch)
+
+    def _nan_fault_inputs(self, step: int, batch: Batch) -> Batch:
+        """``nan_grad``: when the plan covers ``step``, the step's host
+        inputs become NaN (XE: the caption weights, which multiply into
+        the loss; CST: the features), so the device computes a
+        non-finite loss and gradient."""
+        if self._faults is None or not self._faults.pending("nan_grad"):
+            return batch
+        if self.opt.use_rl and self.feat_tables is not None:
+            raise RuntimeError("nan_grad fault injection needs host-"
+                               "streamed features on the CST path; rerun "
+                               "the drill with --device_feats 0")
+        if not self._faults.fire("nan_grad", step):
+            return batch
+        log.warning("FAULT: nan_grad at step %d; feeding NaN inputs",
+                    step + 1)
+        if self.opt.use_rl:
+            batch.feats = [np.full_like(f, np.nan) for f in batch.feats]
+        else:
+            batch.weights = np.full_like(batch.weights, np.nan)
+        return batch
 
     def drain(self) -> Completed:
         """Complete the host-reward pipeline's in-flight steps."""
@@ -467,43 +623,179 @@ class Trainer:
             decode_chunk=self.opt.decode_chunk)
         return scores
 
-    def checkpoint_payload(self, best: float, score: float) -> Dict[str, Any]:
+    def checkpoint_payload(self, score: float = 0.0) -> Dict[str, Any]:
+        """Everything a resume needs, as host tensors and plain values."""
         return {"model": {k: v.detach().cpu().clone()
                           for k, v in self.model.state_dict().items()},
                 "optimizer": self.optimizer.state_dict(),
-                "step": self.step, "best_score": best, "score": score,
+                "step": self.step, "score": score,
+                "best_score": self.best,
+                "rng": {"dropout": self.dropout_gen.get_state(),
+                        "noise": self.noise_gen.get_state(),
+                        "salt": self._rng_salt},
+                "run": {"best": self.best, "best_step": self.best_step,
+                        "patience": self.patience,
+                        "history": list(self.history)},
                 "opt": {k: v for k, v in vars(self.opt).items()
                         if isinstance(v, (str, int, float, type(None)))}}
 
+    def _after_save(self, payload: Dict[str, Any]) -> None:
+        """Bookkeeping after every durable save: the rollback snapshot,
+        the save cadence's clock, and ``metrics.jsonl`` made durable with
+        the state it describes."""
+        self._last_saved_step = payload["step"]
+        self._last_save_monotonic = time.monotonic()
+        self._snapshot_good_state(payload)
+        self.registry.flush(fsync=True)
+        self._watchdog.beat()
+
+    def _save_recovery(self, verify: bool = False) -> None:
+        payload = self.checkpoint_payload()
+        self.ckpt.save_recovery(self.step, payload, verify=verify)
+        self._after_save(payload)
+
     def _note(self, completed: Completed, total: int, clock: list) -> None:
-        """Queue each completed step's ``bad_step`` with the guard and log
-        every ``--log_every``-th step."""
+        """Queue each completed step's ``bad_step`` with the guard; every
+        ``--log_every``-th step, a train record in ``metrics.jsonl``, a
+        log line and the negative-advantage check."""
         opt = self.opt
         for k, m in completed:
             if self.guard is not None:
                 self.guard.observe(k, m.get("bad_step"))
             if not (opt.log_every and (k + 1) % opt.log_every == 0):
                 continue
+            rec = {key: float(m[key]) for key in TRAIN_RECORD_KEYS
+                   if key in m}
+            rec["lr"] = float(self.optimizer.lr(torch.tensor(float(k))))
             secs = time.perf_counter() - clock[0]
             clock[0] = time.perf_counter()
+            if self._captions:      # 0 for the later steps of a drain
+                rec["captions_per_sec"] = self._captions / max(secs, 1e-9)
+                self._captions = 0
+            self.registry.log_step(k + 1, "train", rec)
             rl = ""
             if opt.use_rl:
-                rl = (f" reward {float(m['reward']):.4f} advantage "
-                      f"{float(m['advantage']):.4f} phases (ms) "
+                rl = (f" reward {rec['reward']:.4f} advantage "
+                      f"{rec['advantage']:.4f} phases (ms) "
                       + ", ".join(f"{name} {ms:.1f}"
                                   for name, ms in phase_ms(m).items()))
             log.info("step %d/%d lr %.3g loss %.4f grad_norm %.3f "
-                     "%.1f ms/step%s", k + 1, total,
-                     self.optimizer.current_lr(), float(m["loss"]),
-                     float(m["grad_norm"]), 1e3 * secs / opt.log_every, rl)
+                     "%.1f ms/step%s", k + 1, total, rec["lr"], rec["loss"],
+                     rec["grad_norm"], 1e3 * secs / opt.log_every, rl)
+            self._check_advantage_regime(rec)
+
+    # Negative-advantage regime detector, after the reference's: with a
+    # greedy baseline, samples that score below the greedy decode on every
+    # logged step of a window give every advantage a negative sign, and
+    # REINFORCE only pushes probability away from typical sequences.
+    _ADV_WARN_STEPS = 5
+
+    def _check_advantage_regime(self, m: Dict[str, float]) -> None:
+        if "advantage" not in m or getattr(self, "_adv_warned", False):
+            return
+        hist = getattr(self, "_adv_history", [])
+        hist.append((m["advantage"], m.get("reward", 0.0),
+                     m.get("baseline", 0.0)))
+        self._adv_history = hist = hist[-self._ADV_WARN_STEPS:]
+        if len(hist) < self._ADV_WARN_STEPS:
+            return
+        adv = [a for a, _, _ in hist]
+        if max(adv) < 0 and np.mean(adv) < -0.05:
+            rew = np.mean([r for _, r, _ in hist])
+            base = np.mean([b for _, _, b in hist])
+            msg = (
+                "advantage has been negative on every logged step so far "
+                "(mean %.3f; sampled reward %.3f vs baseline %.3f): the "
+                "baseline dominates the samples, so REINFORCE is only "
+                "suppressing typical sequences and the policy is likely "
+                "to degenerate.  Remedies: --rl_baseline scb-sample/"
+                "scb-gt (centred by construction), lower --temperature, "
+                "or a lower --learning_rate." % (np.mean(adv), rew, base))
+            self._adv_warned = True
+            # getattr, not self.opt: the detector also runs over a bare
+            # namespace.
+            opt = getattr(self, "opt", None)
+            if opt is not None and getattr(
+                    opt, "abort_on_negative_advantage_window", 0):
+                registry = getattr(self, "registry", None)
+                if registry is not None:
+                    registry.inc("negative_advantage_aborts")
+                raise NegativeAdvantageAbort(msg)
+            log.warning(msg)
+
+    def _honor_preemption(self, total: int, clock: list) -> None:
+        """The step-boundary half of preemption: drain, a verified save
+        unless the newest checkpoint already holds this step, the
+        counters, then ``PreemptedExit``."""
+        h = self._preempt
+        self.registry.inc("preempt_signals", h.drain_signal_count())
+        saved = self.step != self._last_saved_step
+        if saved:
+            self._note(self.drain(), total, clock)
+            self._save_recovery(verify=True)
+            self.registry.inc("preempt_saves")
+        if h.signal_monotonic is not None:
+            self.registry.set_gauge(
+                "preempt_exit_ms",
+                (time.monotonic() - h.signal_monotonic) * 1e3)
+        self.registry.flush(fsync=True)
+        log.warning("preemption (%s) honored at step boundary %d: %s; "
+                    "exiting with the resumable code", h.signal_name,
+                    self.step, "verified checkpoint saved" if saved
+                    else "checkpoint already current")
+        raise PreemptedExit(self.step, h.signal_name or "signal", saved)
+
+    def _step_faults(self, step: int) -> None:
+        """The loop's own drill sites, at the boundary before ``step``."""
+        if self._faults.fire("preempt", step):
+            log.warning("FAULT: preempt at step %d; sending SIGTERM to pid "
+                        "%d (the next boundary must save and exit 75)",
+                        step + 1, os.getpid())
+            os.kill(os.getpid(), signal.SIGTERM)
+        if self._faults.fire("wedge", step):
+            log.critical("FAULT: wedge at step %d; blocking the train loop "
+                         "(the watchdog must exit 124)", step + 1)
+            while True:
+                time.sleep(3600)
+
+    def _stopped_early(self, bpe: int) -> bool:
+        """The stage's directory says it already stopped early."""
+        opt, infos = self.opt, self.ckpt.infos
+        return bool(opt.max_patience
+                    and int(infos.get("patience") or 0) >= opt.max_patience
+                    and int(infos.get("last_step") or 0) // bpe
+                    >= opt.min_epochs)
+
+    def _result(self) -> Dict[str, Any]:
+        return {"best_score": None if self.best == float("-inf")
+                else self.best,
+                "best_step": self.best_step, "last_step": self.step,
+                "history": self.history}
 
     def train(self) -> Dict[str, Any]:
         opt = self.opt
         bpe = self.loader.batches_per_epoch
         total = opt.max_epochs * bpe
-        best, best_step, patience = float("-inf"), None, 0
+        if self._stopped_early(bpe):
+            log.info("early stop already reached (%s epochs without %s "
+                     "improvement); nothing to train",
+                     self.ckpt.infos.get("patience"), opt.eval_metric)
+            return self._result()
+        if not self._sink_open:
+            self.registry.add_sink(JsonlSink(os.path.join(
+                opt.checkpoint_path, "metrics.jsonl")))
+            self._sink_open = True
         clock = [time.perf_counter()]
+        self._last_save_monotonic = time.monotonic()
         while self.step < total:
+            # Each pass of the loop means the previous dispatch, drain,
+            # validation and save returned.
+            self._watchdog.beat()
+            self._progress["loop_step"] = self.step
+            if self._preempt is not None and self._preempt.requested:
+                self._honor_preemption(total, clock)
+            if self._faults is not None:
+                self._step_faults(self.step)
             self._note(self.iteration(), total, clock)
             if self.guard is not None and self.guard.poll():
                 rewind = self._handle_divergence(self.step - 1)
@@ -511,6 +803,14 @@ class Trainer:
                     self.step = rewind
                     continue
             if self.step % bpe:
+                due = ((opt.save_every_steps
+                        and self.step % opt.save_every_steps == 0)
+                       or (opt.save_interval_secs > 0
+                           and time.monotonic() - self._last_save_monotonic
+                           >= opt.save_interval_secs))
+                if due:
+                    self._note(self.drain(), total, clock)
+                    self._save_recovery()
                 continue
             # Epoch boundary: complete every in-flight step and reap every
             # bad-step flag before validating and saving.
@@ -521,24 +821,25 @@ class Trainer:
                     self.step = rewind
                     continue
             scores = self.validate()
+            self._watchdog.beat()
             score = scores.get(score_key(opt.eval_metric), 0.0)
             self.history.append({"step": self.step, **scores})
+            self.registry.log_step(self.step, "val", scores)
             log.info("val @ step %d (epoch %d): %s", self.step,
                      self.step // bpe, scores)
-            improved = score > best
-            if improved:
-                best, best_step, patience = score, self.step, 0
+            if score > self.best:
+                self.best, self.best_step, self.patience = score, self.step, 0
             else:
-                patience += 1
-            payload = self.checkpoint_payload(best, score)
-            if improved:
-                checkpoint.save(opt.checkpoint_path, checkpoint.BEST, payload)
-            checkpoint.save(opt.checkpoint_path, checkpoint.LAST, payload)
-            self._snapshot_good_state(payload)
-            if (opt.max_patience and patience >= opt.max_patience
+                self.patience += 1
+            payload = self.checkpoint_payload(score)
+            self.ckpt.save(self.step, payload, score=score, extra={
+                "opt": vars(opt), "val_scores": scores,
+                "patience": self.patience, "history": self.history})
+            self._after_save(payload)
+            if (opt.max_patience and self.patience >= opt.max_patience
                     and self.step // bpe >= opt.min_epochs):
                 log.info("early stop: no %s improvement in %d epochs",
-                         opt.eval_metric, patience)
+                         opt.eval_metric, self.patience)
                 break
         self._note(self.drain(), total, clock)
         if self.guard is not None:
@@ -547,12 +848,19 @@ class Trainer:
                 log.warning("divergence guard summary: %d step(s) skipped as "
                             "non-finite, %d rollback(s)",
                             self.guard.total_skipped, self.guard.rollbacks)
-        result = {"best_score": None if best == float("-inf") else best,
-                  "best_step": best_step, "last_step": self.step,
-                  "history": self.history}
-        os.makedirs(opt.checkpoint_path, exist_ok=True)
-        tmp = os.path.join(opt.checkpoint_path, f"infos.json.{os.getpid()}")
-        with open(tmp, "w") as f:
-            json.dump(result, f)
-        os.replace(tmp, os.path.join(opt.checkpoint_path, "infos.json"))
-        return result
+        self.registry.flush(fsync=True)
+        return self._result()
+
+    def close(self) -> None:
+        """Write ``telemetry.json`` (when ``train`` ran) with this
+        process's kernel launches, close ``metrics.jsonl`` and stop the
+        watchdog."""
+        try:
+            if self._sink_open:
+                for key, n in launch_counts_by_dtype().items():
+                    self.registry.set_gauge(f"launches/{key}", n)
+                self.registry.write_snapshot(os.path.join(
+                    self.opt.checkpoint_path, "telemetry.json"))
+            self.registry.close()
+        finally:
+            self._watchdog.stop()

@@ -186,11 +186,11 @@ def converted(tmp_path_factory):
     feats = [jnp.zeros((2, 3, 8)), jnp.zeros((2, 1, 5))]
     params = jax.tree_util.tree_map(np.array, jm.init(
         jax.random.PRNGKey(3), feats, np.zeros((2, 8), np.int32))["params"])
-    checkpoint.save(opt.checkpoint_path, checkpoint.BEST, {
+    checkpoint.CheckpointManager(opt.checkpoint_path).save(0, {
         "model": from_flax(params), "step": 0, "best_score": 0.0,
         "score": 0.0, "opt": {k: v for k, v in vars(opt).items()
                               if isinstance(v, (str, int, float,
-                                                type(None)))}})
+                                                type(None)))}}, score=0.0)
     with CaptionDataset(jsynthetic.split_paths(val_paths)) as ds:
         loader = JaxLoader(ds, batch_size=4, seq_per_img=1, shuffle=False)
         preds, scores = jax_eval(jm, params, loader, ds.vocab, 8,

@@ -441,18 +441,18 @@ def test_fused_setup_refuses_a_video_without_references():
 
 
 def test_optimizer_state_round_trips_through_a_checkpoint(tmp_path):
-    """``last.pt`` holds the optimizer's count and moments; loading them
-    into a fresh optimizer restores every tensor."""
+    """A step checkpoint holds the optimizer's count and moments; loading
+    them into a fresh optimizer restores every tensor."""
     from cst_captioning_tpu_torch.training import checkpoint
 
     trainer = Trainer(train.parse_args(BASE + ["--optim", "adamw"]))
     for _ in range(2):
         trainer.iteration()
-    checkpoint.save(str(tmp_path), checkpoint.LAST,
-                    trainer.checkpoint_payload(0.0, 0.0))
+    checkpoint.CheckpointManager(str(tmp_path)).save_recovery(
+        trainer.step, trainer.checkpoint_payload())
     fresh = Optimizer(trainer.model.parameters(), optim="adamw")
     fresh.load_state_dict(checkpoint.load(str(tmp_path),
-                                          checkpoint.LAST)["optimizer"])
+                                          best=False)["optimizer"])
     assert fresh.count.item() == 2.0
     for a, b in zip(fresh.state, trainer.optimizer.state):
         assert all(torch.equal(a[k], b[k]) for k in a)

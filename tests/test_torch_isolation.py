@@ -56,7 +56,9 @@ def test_sources_found():
     assert {"chip_smoke.py", "engine.py", "decode_cell_kernel.py",
             "attention_kernel.py", "serve.py", "train.py", "trainer.py",
             "synthetic.py", "ciderd.py", "eval.py", "coco_eval.py",
-            "bleu.py", "meteor.py", "rouge.py"} <= names
+            "bleu.py", "meteor.py", "rouge.py", "exitcodes.py", "faults.py",
+            "integrity.py", "preemption.py", "watchdog.py", "registry.py",
+            "checkpoint.py"} <= names
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: str(

@@ -148,7 +148,8 @@ def _run(argv, capsys):
 def test_three_stage_chain_through_the_cli(tmp_path, capsys):
     """XE -> WXE -> CST (greedy baseline, K2 route) as three CLI runs
     chained by ``--start_from``; each stage starts from the previous
-    stage's best parameters and writes best.pt, last.pt and infos.json."""
+    stage's best parameters and writes its epoch steps (each sealed by a
+    manifest), infos.json and metrics.jsonl."""
     xe = _run(["--checkpoint_path", str(tmp_path / "xe"),
                "--max_epochs", "2", "--learning_rate", "1e-2"], capsys)
     assert xe["last_step"] == 6 and xe["best_step"] in (3, 6)
@@ -162,7 +163,9 @@ def test_three_stage_chain_through_the_cli(tmp_path, capsys):
     for stage, out in (("xe", xe), ("wxe", wxe), ("cst", cst)):
         d = tmp_path / stage
         assert out["checkpoint_path"] == str(d)
-        assert {"best.pt", "last.pt", "infos.json"} <= set(os.listdir(d))
+        assert {str(out["best_step"]), str(out["last_step"]), "infos.json",
+                "metrics.jsonl"} <= set(os.listdir(d))
+        assert os.path.exists(d / str(out["last_step"]) / "manifest.json")
         infos = json.loads((d / "infos.json").read_text())
         assert infos["best_score"] == out["best_score"] >= 0.0
     # WXE started from XE's best parameters.
