@@ -90,7 +90,23 @@ Phases, each printed as it runs; any failure exits non-zero:
    post-resume train losses equal; each process reports its kernel
    launches in its ``telemetry.json``.  Prints each run's seconds,
    ``preempt_exit_ms``, the checkpoint save and verify milliseconds and
-   the phase's total.
+   the phase's total;
+11. the bench: first K1 (with its gradients, bit for bit) and K2 in
+   bfloat16 storage at the rows the bench's processes run them at that
+   phase 8 did not check (K1 at 640, K2 at 4, 5, 20 and 672), against
+   their plain versions at phase 8's tolerances; then the native CIDEr-D
+   library this process loaded, which must be the build of
+   ``native/ciderd.cpp`` by this machine's g++ (its digest covers the
+   compiler and the platform), held against the Python scorer on phase
+   7's rollout (1344 captions) within rtol 1e-9, each timed; then
+   ``python -m cst_captioning_tpu_torch.bench`` as four processes: at its
+   defaults (XE and CST, 32 videos x 20 captions, bfloat16; the record
+   must say ``cst_scorer`` native and the fused path, every rate finite
+   and positive, K1 launched in XE and K1 and K2 in CST), ``--stage
+   serving`` greedy (24 requests at 8 Hz, buckets 1,4,8) and at beam 5
+   (8 requests), every request answered and K2 launched, and ``--stage
+   data --loader_workers 4`` paced at this run's XE step time.  Each
+   record is printed as its own line.
 
 Each serving phase sets every kernel's launch count to 0 just before it
 and reads the counts just after; a kernel of the path launched other
@@ -103,7 +119,7 @@ dispatched; the fused path builds no host reward.
 Output: phase lines as they run; then a JSON object with one entry per
 kernel and storage dtype (``storage``; times at the serving batch B = 8,
 every measured batch under ``by_batch``; launches of phases 4-7, 9 and
-10 for float32, of phase 8 for bfloat16); then the card line (``nvidia-smi``
+10 for float32, of phases 8 and 11 for bfloat16); then the card line (``nvidia-smi``
 name and power limit); and last ``{"ok": true, "device": ...}``.
 Without a CUDA device, or run outside a checkout of the repository, the
 script exits non-zero and prints no result.
@@ -752,19 +768,20 @@ def phase_medians(steps) -> dict:
     return {key: float(np.median(v)) for key, v in per.items()}
 
 
-def device_and_host_scores(cst, host_scorer) -> None:
+def device_and_host_scores(cst, host_scorer):
     """One real rollout of the fused CST trainer (1280 samples and 64
     greedy rows of one batch), and the batch's 1280 reference caption
     rows, which score high, scored on the device against the host
-    CIDEr-D (``metrics/ciderd.py``): within 1e-4 relative (1e-6 absolute
-    for zero scores)."""
+    CIDEr-D (the host path's scorer, the native one): within 1e-4
+    relative (1e-6 absolute for zero scores).  -> (the rollout's rows,
+    their video ids) for phase 11."""
     import numpy as np
     import torch
 
     from cst_captioning_tpu_torch.ops.device_ciderd import ciderd_scores
     from cst_captioning_tpu_torch.training.steps import rollout
 
-    batch = cst.loader.next_batch()
+    batch = cst.next_batch()
     vix = torch.from_numpy(batch.video_ix).cuda()
     hyp_vix = torch.repeat_interleave(vix, TRAIN_SEQ)
     sampled, greedy, n_steps = rollout(
@@ -797,6 +814,8 @@ def device_and_host_scores(cst, host_scorer) -> None:
     if len(sampled) + len(greedy) != ROLLOUT_ROWS:
         fail(f"the rollout had {len(sampled) + len(greedy)} rows, "
              f"{ROLLOUT_ROWS} expected")
+    rollout_rows = torch.cat([sampled, greedy]).cpu().numpy()
+    return rollout_rows, row_vids + list(batch.video_ids)
 
 
 def nan_guard_check(cst) -> None:
@@ -809,7 +828,7 @@ def nan_guard_check(cst) -> None:
     before = ([p.detach().clone() for p in cst.model.parameters()],
               [{k: v.clone() for k, v in st.items()} for st in opt.state],
               opt.count.clone())
-    batch = cst.loader.next_batch()
+    batch = cst.next_batch()
     batch.feats = [np.full_like(f, np.nan) for f in batch.feats]
     (_, m), = cst.rl_iteration(batch)
     torch.cuda.synchronize()
@@ -851,7 +870,10 @@ def train_splits():
 def train_phase(splits):
     """Phase 7: XE -> WXE -> CST at full width through the train CLI's
     parser and ``Trainer``; CST on the fused path (the default), then on
-    the host-reward path.  -> {kernel: launches in the phase}."""
+    the host-reward path (the native CIDEr-D, ``--native_cider 1``).
+    -> ({kernel: launches in the phase}, one rollout's rows with their
+    video ids, the tokenized references and the vocabulary, for phase
+    11)."""
     import shutil
 
     import numpy as np
@@ -995,7 +1017,12 @@ def train_phase(splits):
     host = Trainer(train.parse_args(stage_args(
         *cst_args, "--device_rewards", "0", "--overlap_rewards", "2",
         "--checkpoint_path", os.path.join(CKPT_ROOT, "cst_host"))), splits)
-    device_and_host_scores(cst, host.reward_computer._score)
+    if host.cst_scorer != "native":
+        fail(f"the host path scored with the {host.cst_scorer} CIDEr-D; "
+             "--native_cider 1 (the default) must build and load the "
+             "native one")
+    rollout_rows, rollout_vids = device_and_host_scores(
+        cst, host.reward_computer._reward)
     del cst
 
     def host_step(done, launches):
@@ -1023,7 +1050,7 @@ def train_phase(splits):
     ms = phase_medians(host_steps)
     print(f"train CST host phases (median ms): rollout {ms['rollout']:.3f} "
           f"(CUDA events), fetch wait {ms['fetch_wait']:.3f}, host reward "
-          f"{ms['reward']:.3f}, grad {ms['grad']:.3f} (CUDA events); "
+          f"({host.cst_scorer} CIDEr-D) {ms['reward']:.3f}, grad {ms['grad']:.3f} (CUDA events); "
           f"iteration {host_ms * 1e3:.3f} ms = {rows / host_ms:.1f} "
           f"captions/s; in flight {[m['overlap_inflight'] for _, d, _ in host_steps for _, m in d]}; "
           f"drain of {len(drained)} steps {drain_s * 1e3:.3f} ms")
@@ -1032,8 +1059,10 @@ def train_phase(splits):
     print(f"train peak device memory: "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB "
           f"(torch.cuda.max_memory_allocated)")
+    scored = {"rows": rollout_rows, "vids": rollout_vids,
+              "refs": host.reward_computer.refs, "vocab": host.vocab}
     del host
-    return total
+    return total, scored
 
 
 def to_bf16(*tensors) -> tuple:
@@ -1709,6 +1738,196 @@ def resume_phase() -> dict:
     return total
 
 
+# Phase 11: the port's bench at its defaults (32 videos x 20 captions,
+# bfloat16, K1 and K2), its serving stage (greedy and beam 5) and its data
+# stage with 4 prefetch workers, each one ``python -m
+# cst_captioning_tpu_torch.bench`` process.
+BENCH_KERNELS = ("fused_additive_attention", "fused_decode_cell")
+# The rows each kernel runs at there: K1 at the bench's 32 x 20 captions
+# (XE and the CST gradient), K2 at its rollout's 32 x 20 + 32 greedy rows
+# and at the serving stage's buckets (1, 4, 8) times the beam (1, 5).
+BENCH_BATCH, BENCH_SEQ, BENCH_BUCKETS, BENCH_BEAM = 32, 20, (1, 4, 8), 5
+BENCH_K1_ROWS = (BENCH_BATCH * BENCH_SEQ,)
+BENCH_K2_ROWS = tuple(sorted(
+    {BENCH_BATCH * (BENCH_SEQ + 1)}
+    | {b * k for b in BENCH_BUCKETS for k in (1, BENCH_BEAM)}))
+
+
+def bench_kernel_checks(bf16_measured) -> None:
+    """Phase 11a: K1 and K2 in bfloat16 storage at every row count of the
+    bench's processes that phase 8 has not checked (K1 with its
+    gradients), against their plain versions at phase 8's tolerances (one
+    and two bfloat16 ulps); added to ``bf16_measured``."""
+    import torch
+
+    flush = torch.empty(FLUSH_BYTES // 4, device="cuda")
+    gen = torch.Generator().manual_seed(6789)
+    for key, rows, check in (("K1", BENCH_K1_ROWS, check_k1_bf16),
+                             ("K2", BENCH_K2_ROWS, check_k2_bf16)):
+        for b in rows:
+            if b in bf16_measured[key]:
+                continue
+            kw = {"backward": True} if key == "K1" else {}
+            bf16_measured[key][b] = check(b, attention_inputs(b, gen), gen,
+                                          flush, **kw)
+            report_bf16(key, b, bf16_measured[key][b])
+    del flush
+
+
+def native_scorer_check(scored) -> None:
+    """The native libraries this process loaded (phase 7's host path
+    loaded the CIDEr-D one): each must be the build of the checkout's
+    source by this machine's g++ (the path ``library_path`` gives); then
+    the host path's scorer against the Python scorer on phase 7's rollout
+    (1280 samples and 64 greedy rows) through ``RewardComputer._reward``:
+    within rtol 1e-9, with each scorer's host seconds."""
+    from pathlib import Path
+
+    import numpy as np
+
+    from cst_captioning_tpu_torch import native
+    from cst_captioning_tpu_torch.metrics.ciderd import (CiderD,
+                                                         build_corpus_df)
+    from cst_captioning_tpu_torch.training.rewards import RewardComputer
+
+    print(f"native: toolchain {native.toolchain_id()}")
+    for src, load in ((native.CIDERD_SRC, native.load_library),
+                      (native.TOKENIZER_SRC, native.load_tokenizer_library)):
+        loaded, want = Path(load()._name), native.library_path(src)
+        built = native.BUILD_SECONDS.get(src.stem)
+        print(f"native: {src.name} loaded from {os.path.relpath(loaded, HERE)}"
+              + (f", built by g++ in this run in {built:.2f} s"
+                 if built is not None else ", found built"))
+        if loaded != want:
+            fail(f"native: loaded {loaded}, the build of {src.name} by "
+                 f"this machine's g++ is {want}")
+    refs, vocab = scored["refs"], scored["vocab"]
+    t0 = time.perf_counter()
+    nat = RewardComputer(vocab, native.NativeCiderD(refs, vocab.word_to_ix),
+                         refs, seq_per_img=TRAIN_SEQ)
+    nat_setup = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    df, ndocs = build_corpus_df(refs)
+    py = RewardComputer(vocab, CiderD(df_mode="corpus", df=df,
+                                      ref_len=float(ndocs)),
+                        refs, seq_per_img=TRAIN_SEQ)
+    py_setup = time.perf_counter() - t0
+    times = {}
+    out = {}
+    for name, rc in (("native", nat), ("python", py)):
+        t0 = time.perf_counter()
+        out[name] = rc._reward(scored["vids"], scored["rows"])
+        times[name] = time.perf_counter() - t0
+    err = np.abs(out["native"] - out["python"])
+    ok = np.allclose(out["native"], out["python"], rtol=1e-9, atol=1e-12)
+    print(f"native CIDEr-D vs Python on phase 7's rollout "
+          f"({len(scored['rows'])} captions): max abs error {err.max():.3e}, "
+          f"mean {out['native'].mean():.6f}; scoring native "
+          f"{times['native'] * 1e3:.3f} ms, Python "
+          f"{times['python'] * 1e3:.3f} ms "
+          f"({times['python'] / times['native']:.1f}x); set-up native "
+          f"{nat_setup:.2f} s, Python {py_setup:.2f} s "
+          f"({len(refs)} videos)")
+    if not ok:
+        fail("the native CIDEr-D disagrees with the Python scorer beyond "
+             "rtol 1e-9")
+
+
+def run_bench(name: str, *argv) -> dict:
+    """One bench process; fails unless it exits 0 with one JSON line.
+    Prints that line.  -> the record."""
+    env = dict(os.environ, PYTHONPATH=HERE)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "cst_captioning_tpu_torch.bench", *argv],
+        cwd=HERE, env=env, capture_output=True, text=True, timeout=400)
+    secs = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode != 0 or len(lines) != 1:
+        print(proc.stderr[-6000:], file=sys.stderr)
+        fail(f"phase 11 bench {name}: exit {proc.returncode}, "
+             f"{len(lines)} lines of output")
+    print(f"bench {name}: {secs:.1f} s")
+    print(lines[0])
+    return json.loads(lines[0])
+
+
+def check_rates(name: str, rec: dict, keys) -> None:
+    import math
+
+    for key in keys:
+        v = rec.get(key)
+        if not (isinstance(v, (int, float)) and math.isfinite(v) and v > 0):
+            fail(f"phase 11 bench {name}: {key} = {v!r}")
+
+
+def bench_phase(scored, bf16_measured) -> dict:
+    """Phase 11.  -> {kernel: bfloat16 launches in the bench processes}
+    (the bench's default ``--bfloat16 1``)."""
+    import torch
+
+    t_phase = time.perf_counter()
+    bench_kernel_checks(bf16_measured)
+    native_scorer_check(scored)
+    kind = torch.cuda.get_device_name(0)
+    total = dict.fromkeys(BENCH_KERNELS, 0)
+
+    both = run_bench("both")
+    check_rates("both", both, (
+        "value", "xe_captions_per_sec", "cst_captions_per_sec",
+        "cst_host_pipeline_captions_per_sec", "cst_serial_captions_per_sec",
+        "cst_fused_captions_per_sec", "xe_achieved_tflops",
+        "cst_achieved_tflops"))
+    if (both["cst_scorer"] != "native" or both["cst_path"] != "device_fused"
+            or both["device"] != kind or both["platform"] != "cuda"):
+        fail(f"phase 11 bench both: scorer {both['cst_scorer']}, path "
+             f"{both['cst_path']}, device {both['device']}")
+    for stage in ("xe", "cst"):
+        got = both[f"{stage}_launches"]
+        if not all(got[k] > 0 for k in
+                   (BENCH_KERNELS if stage == "cst"
+                    else BENCH_KERNELS[:1])):
+            fail(f"phase 11 bench both: {stage} launches {got}")
+        for k in BENCH_KERNELS:
+            total[k] += got[k]
+
+    cfg = both["config"]
+    if (cfg["batch_size"], cfg["seq_per_img"]) != (BENCH_BATCH, BENCH_SEQ):
+        fail(f"phase 11 bench both: {cfg['batch_size']} x "
+             f"{cfg['seq_per_img']}, the kernels were checked at "
+             f"{BENCH_BATCH} x {BENCH_SEQ}")
+
+    buckets = ",".join(map(str, BENCH_BUCKETS))
+    for name, argv, n in (
+            ("serving greedy", ["--serve_requests", "24", "--serve_rate",
+                                "8", "--serve_buckets", buckets], 24),
+            ("serving beam 5", ["--serve_beam", str(BENCH_BEAM),
+                                "--serve_requests", "8", "--serve_buckets",
+                                buckets], 8)):
+        rec = run_bench(name, "--stage", "serving", *argv)
+        check_rates(name, rec, ("value", "latency_p50_ms",
+                                "latency_p99_ms"))
+        if (rec["completed"] != n or rec["answered"] != n
+                or rec["launches"]["fused_decode_cell"] == 0):
+            fail(f"phase 11 bench {name}: {rec['completed']} of {n} "
+                 f"answered, launches {rec['launches']}")
+        for k in BENCH_KERNELS:
+            total[k] += rec["launches"][k]
+
+    # The paced phase at the step time of this run's XE rate.
+    consumer_ms = (cfg["batch_size"] * cfg["seq_per_img"]
+                   / both["xe_captions_per_sec"] * 1e3)
+    data = run_bench("data", "--stage", "data", "--loader_workers", "4",
+                     "--data_consumer_ms", f"{consumer_ms:.3f}")
+    check_rates("data", data, ("value", "single_worker_captions_per_sec",
+                               "workers_speedup"))
+    if data["retries"] != 0 or data["data_wait_share"] is None:
+        fail(f"phase 11 bench data: {data}")
+    print(f"bench phase: {time.perf_counter() - t_phase:.1f} s; launches "
+          f"{total}")
+    return total
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "cst_captioning_tpu_torch")):
         print("chip_smoke: no cst_captioning_tpu_torch package beside "
@@ -1729,6 +1948,9 @@ def main() -> int:
     print(f"card: {card}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"device {torch.cuda.get_device_name(0)}")
+    free, total = torch.cuda.mem_get_info()
+    print(f"device memory: {free / 2 ** 30:.2f} GiB free of "
+          f"{total / 2 ** 30:.2f} GiB at start")
 
     t0 = time.perf_counter()
     built = _cuda.build()
@@ -1775,7 +1997,7 @@ def main() -> int:
     # Phase 7: training, K1 and K2 at the training batches first.
     splits = train_splits()
     training_kernel_checks(measured)
-    t_launch = train_phase(splits)
+    t_launch, scored = train_phase(splits)
 
     # Phase 8: bfloat16 storage and compute.
     bf16_measured = bf16_kernel_checks()
@@ -1790,8 +2012,13 @@ def main() -> int:
     # train CLI, each resumed run bit-identical to its twin.
     resume_launch = resume_phase()
 
+    # Phase 11: the port's bench, its serving and data stages.
+    bench_launch = bench_phase(scored, bf16_measured)
+    del scored
+
     # The kernels line: one entry per kernel and storage dtype.  Launches:
-    # float32 from phases 4-7, 9 and 10, bfloat16 from phase 8; times at B=8, the
+    # float32 from phases 4-7, 9 and 10, bfloat16 from phases 8 and 11;
+    # times at B=8, the
     # greedy serving batch (8-slot bucket), every measured batch under
     # ``by_batch``.
     launches = {
@@ -1803,9 +2030,11 @@ def main() -> int:
         + t_launch["fused_decode_cell"] + e_launch
         + resume_launch["fused_decode_cell"],
         ("K1", "bfloat16"): s_launch["fused_additive_attention/bfloat16"]
-        + bt_launch["fused_additive_attention/bfloat16"],
+        + bt_launch["fused_additive_attention/bfloat16"]
+        + bench_launch["fused_additive_attention"],
         ("K2", "bfloat16"): s_launch["fused_decode_cell/bfloat16"]
-        + bt_launch["fused_decode_cell/bfloat16"],
+        + bt_launch["fused_decode_cell/bfloat16"]
+        + bench_launch["fused_decode_cell"],
     }
     meta = {
         "K1": ("fused_additive_attention", "cst_captioning_tpu_torch/csrc/"

@@ -1,15 +1,22 @@
 """PTB-style caption tokenizer (copy of the reference's
-``metrics/tokenizer.py``, pure-Python path).
+``metrics/tokenizer.py``).
 
 ``tokenize(caption)`` -> lowercase word tokens with PTB-style splitting
 (contractions, possessives, punctuation isolation, bracket
 normalisation) and coco-caption's punctuation set removed.
+``tokenize_corpus`` sends the ASCII captions of a whole corpus through the
+C++ twin (``native/tokenizer.cpp``) in one call, once a start-up probe has
+found it equal to this module on representative captions; without a
+toolchain, or for non-ASCII captions, it tokenizes here.
 """
 
 from __future__ import annotations
 
+import logging
 import re
 from typing import Dict, Iterable, List
+
+from ..native import ptb_tokenize_batch
 
 # coco-caption's PTBTokenizer wrapper removes exactly these tokens after
 # the Java tokenizer runs.
@@ -83,9 +90,61 @@ def tokenize_to_str(caption: str) -> str:
     return " ".join(tokenize(caption))
 
 
+log = logging.getLogger(__name__)
+
+#: The C++ batch tokenizer once resolved: the function, or False when it
+#: cannot be built or failed its probe (then never tried again).
+_native_batch = None
+
+#: Captions the native tokenizer must tokenize exactly as ``tokenize_to_str``
+#: before it is used.
+_PROBE = ["A man... isn't (really) cooking the dogs' dinner.",
+          "cannot. u.s. 'tis \"quoted\"!"]
+
+
+def _resolve_native():
+    """Load the C++ tokenizer once per process and hold it against this
+    module on ``_PROBE``; any build, load or probe failure pins the
+    Python path."""
+    global _native_batch
+    if _native_batch is None:
+        try:
+            if ptb_tokenize_batch(_PROBE) != [tokenize_to_str(p)
+                                              for p in _PROBE]:
+                raise RuntimeError("native tokenizer parity probe failed")
+            _native_batch = ptb_tokenize_batch
+        except RuntimeError as e:   # NativeUnavailable is one
+            log.warning("native tokenizer unavailable (%s); tokenizing in "
+                        "Python", e)
+            _native_batch = False
+    return _native_batch
+
+
 def tokenize_corpus(captions_for_key: Dict[str, Iterable[str]]
                     ) -> Dict[str, List[str]]:
     """``{key: [caption, ...]}`` -> ``{key: [tokenized caption string,
-    ...]}`` in the same order (coco-caption's interface)."""
-    return {key: [tokenize_to_str(c) for c in caps]
-            for key, caps in captions_for_key.items()}
+    ...]}`` in the same order (coco-caption's interface).  The ASCII
+    captions of every key go through the C++ twin in one batch once it
+    is resolved; the rest here."""
+    global _native_batch
+    corpus = {key: list(caps) for key, caps in captions_for_key.items()}
+    native = _resolve_native()
+    if not native:
+        return {key: [tokenize_to_str(c) for c in caps]
+                for key, caps in corpus.items()}
+    out = {key: [None if c.isascii() else tokenize_to_str(c) for c in caps]
+           for key, caps in corpus.items()}
+    slots = [(key, j) for key, caps in out.items()
+             for j, tok in enumerate(caps) if tok is None]
+    flat = [corpus[key][j] for key, j in slots]
+    try:
+        toks = native(flat)
+    except (RuntimeError, ValueError) as e:
+        # A fault of the batch call itself (a batch past the int32
+        # offsets, an overflow) pins the Python path too.
+        log.warning("native tokenizer failed (%s); tokenizing in Python", e)
+        _native_batch = False
+        toks = [tokenize_to_str(c) for c in flat]
+    for (key, j), tok in zip(slots, toks):
+        out[key][j] = tok
+    return out

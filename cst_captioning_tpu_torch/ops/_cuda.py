@@ -130,6 +130,14 @@ def load(name: str, function: Optional[str] = None):
     return fn
 
 
+def loaded_libraries() -> Tuple[Tuple[str, str], ...]:
+    """The (library, function) pairs loaded so far in this process: a
+    measurement that must build or load nothing compares it before and
+    after its clock."""
+    with _lock:
+        return tuple(sorted(_loaded))
+
+
 #: Storage dtypes the kernels take: float32, and bfloat16 (the reference
 #: kernels' bf16 storage under ``--use_bfloat16``; math in float32).
 STORAGE_DTYPES = (torch.float32, torch.bfloat16)

@@ -32,8 +32,9 @@ kind             keys on  effect at the injection site
 ``preempt``      step     deliver a real ``SIGTERM`` to this process when
                           step N is dispatched (the next step boundary
                           saves a verified checkpoint and exits 75)
-``loader_err``   batch    parsed; nothing fires it yet (it needs the
-                          reference's prefetch worker and its retry)
+``loader_err``   batch    raise ``InjectedFault`` (a transient ``OSError``)
+                          from batch N's feature read; the prefetch
+                          worker retries it with backoff
 ===============  =======  ===================================================
 
 The serving (``@req``) and process (``@replica``) kinds parse as in the
@@ -52,6 +53,7 @@ import json
 import logging
 import os
 import re
+import threading
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Set, Tuple
 
@@ -88,6 +90,10 @@ _SPEC_RE = re.compile(
 )
 
 
+class InjectedFault(OSError):
+    """Raised by injection sites that simulate a transient I/O failure."""
+
+
 @dataclass(frozen=True)
 class FaultSpec:
     """One armed fault: ``kind`` fires at indices ``at .. at+times-1``;
@@ -116,6 +122,9 @@ class FaultPlan:
     _consumed: Set[Tuple[str, int]] = field(default_factory=set)
     _state_path: Optional[str] = None
     _metrics: Optional[object] = field(default=None, repr=False)
+    # Prefetch workers fire ``loader_err`` from their own threads.
+    _lock: threading.Lock = field(default_factory=threading.Lock,
+                                  repr=False, compare=False)
 
     def bind_metrics(self, registry) -> "FaultPlan":
         """Count firings into a ``telemetry.registry.MetricsRegistry``
@@ -204,9 +213,10 @@ class FaultPlan:
             if spec.kind == kind and spec.replica is None \
                     and spec.covers(index):
                 key = (kind, int(index))
-                if key in self._consumed:
-                    return False
-                self._consume(kind, key)
+                with self._lock:
+                    if key in self._consumed:
+                        return False
+                    self._consume(kind, key)
                 log.warning("FAULT INJECTED: %s fired at %s=%d (spec %s)",
                             kind, KINDS[kind], index, spec)
                 return True

@@ -34,6 +34,7 @@ class MetricsRegistry:
         self._counters: Dict[str, float] = {}
         self._gauges: Dict[str, float] = {}
         self._hists: Dict[str, Dict[str, float]] = {}
+        self._info: Dict[str, Any] = {}
         self._sinks: List[Any] = []
         self._last_train: Optional[Dict[str, Any]] = None
         self._last_val: Optional[Dict[str, Any]] = None
@@ -54,6 +55,12 @@ class MetricsRegistry:
     def set_gauge(self, name: str, value: float) -> None:
         with self._lock:
             self._gauges[name] = value
+
+    def set_info(self, name: str, value: Any) -> None:
+        """A fact of the run that is not a number (the CST scorer that
+        ran), carried in the snapshot under ``info``."""
+        with self._lock:
+            self._info[name] = value
 
     def observe(self, name: str, value: float) -> None:
         """One observation of a histogram kept as count/sum/min/max."""
@@ -106,6 +113,7 @@ class MetricsRegistry:
             return {"schema": METRICS_SCHEMA, "time": time.time(),
                     "counters": dict(self._counters),
                     "gauges": dict(self._gauges), "histograms": hists,
+                    "info": dict(self._info),
                     "last_train": self._last_train,
                     "last_val": self._last_val}
 

@@ -10,7 +10,10 @@ one stage per run, as the reference runs them.
 CST runs the fused on-device step by default (``--device_rewards 1``:
 rollout, on-device CIDEr-D, REINFORCE gradient and the guarded update,
 strictly on-policy); ``--device_rewards 0`` scores on the host through a
-pipeline ``--overlap_rewards`` rollouts deep.  The divergence guard
+pipeline ``--overlap_rewards`` rollouts deep, with the native C++ CIDEr-D
+(``--native_cider 1``, the default; the Python scorer, with a warning,
+where it cannot be built).  ``--loader_workers`` threads assemble the
+batches ahead of the step, in the loader's own order.  The divergence guard
 (``--divergence_guard 1``) skips non-finite updates on the device and
 rolls back after ``--divergence_max_bad`` in a row.
 
@@ -66,6 +69,14 @@ def _fault_plan(text: str) -> str:
     return text
 
 
+def positive_int(text: str) -> int:
+    """argparse type of a count that must be at least 1."""
+    value = int(text)
+    if value < 1:
+        raise argparse.ArgumentTypeError(f"must be >= 1, got {value}")
+    return value
+
+
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     g = p.add_argument_group("data (synthetic, in memory)")
@@ -77,6 +88,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     g.add_argument("--captions_per_video", type=int, default=20)
     g.add_argument("--feat_shapes", default="28x2048,1x4096")
     g.add_argument("--synthetic_seed", type=int, default=0)
+    g.add_argument("--loader_workers", type=positive_int, default=1,
+                   help="prefetch threads assembling batches ahead of the "
+                        "step; the batch order is the same at any count")
     g = p.add_argument_group("model")
     g.add_argument("--rnn_size", type=int, default=512)
     g.add_argument("--input_encoding_size", type=int, default=512)
@@ -129,6 +143,11 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="1 = CIDEr-D on the device and the whole CST "
                         "iteration in one fused step (strictly on-policy); "
                         "0 = the host reward path")
+    g.add_argument("--native_cider", type=int, default=1,
+                   help="host reward path: 1 = the C++ CIDEr-D scorer "
+                        "(built with g++ at first use; the Python scorer "
+                        "with a warning when it cannot be); 0 = the "
+                        "Python scorer")
     g.add_argument("--device_cider_chunk_mb", type=float, default=256,
                    help="budget of the on-device reward's hyp-ref match "
                         "tensor; over it the match is chunked over the "

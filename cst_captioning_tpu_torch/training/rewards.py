@@ -1,9 +1,11 @@
 """Host-side RL rewards: CIDEr-D advantage with the greedy / SCB baselines
-(copy of the reference's ``training/rewards.py``, Python scorer).
+(copy of the reference's ``training/rewards.py``).
 
-Sampled token ids come off the device, are decoded to strings, scored
-with corpus-df CIDEr-D against their video's references, and go back as
-a per-caption advantage:
+Sampled token ids come off the device, are scored with corpus-df CIDEr-D
+against their video's references, and go back as a per-caption
+advantage.  A scorer with ``score_ids`` (``native.NativeCiderD``) reads
+the id rows directly; the Python ``CiderD`` gets them decoded to
+strings.  Baselines:
 
 - ``greedy``: reward of the sample minus the reward of the greedy decode
   of the same video (SCST);
@@ -16,12 +18,13 @@ a per-caption advantage:
 from __future__ import annotations
 
 import logging
-from typing import Dict, List, Mapping, Optional, Sequence, Tuple
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
 from ..data.vocab import Vocab
-from ..metrics.ciderd import CiderD
+from ..metrics.ciderd import CiderD, build_corpus_df
+from ..native import NativeCiderD
 
 log = logging.getLogger(__name__)
 
@@ -36,10 +39,27 @@ def scb_gt_value(scores, scb_captions: int) -> float:
     return float(s[:k].mean()) if k else 0.0
 
 
+def host_scorer(tokenized_refs: Mapping[str, Sequence[str]],
+                word_to_ix: Mapping[str, int], native: bool = True
+                ) -> Tuple[Union[CiderD, NativeCiderD], str]:
+    """The host path's corpus-df CIDEr-D over ``tokenized_refs`` -> (the
+    scorer, "native" or "python"): the C++ one when ``native`` (the
+    reference's ``--native_cider 1``), the Python one when not or when
+    the library cannot be built (a warning, as the reference's
+    trainer)."""
+    if native:
+        try:
+            return NativeCiderD(tokenized_refs, word_to_ix), "native"
+        except RuntimeError as e:       # NativeUnavailable is one
+            log.warning("native CIDEr-D unavailable (%s); using Python", e)
+    df, ndocs = build_corpus_df(tokenized_refs)
+    return CiderD(df_mode="corpus", df=df, ref_len=float(ndocs)), "python"
+
+
 class RewardComputer:
     """Per-batch CIDEr-D rewards and advantage for the CST stage."""
 
-    def __init__(self, vocab: Vocab, scorer: CiderD,
+    def __init__(self, vocab: Vocab, scorer: Union[CiderD, NativeCiderD],
                  tokenized_refs: Mapping[str, Sequence[str]],
                  seq_per_img: int, baseline: str = "greedy",
                  consensus_scores: Optional[Mapping[str, np.ndarray]] = None,
@@ -52,6 +72,7 @@ class RewardComputer:
             raise ValueError("scb-gt baseline needs consensus scores")
         self.vocab = vocab
         self.scorer = scorer
+        self._native = hasattr(scorer, "score_ids")
         self.refs = tokenized_refs
         self.seq_per_img = seq_per_img
         self.baseline = baseline
@@ -61,11 +82,17 @@ class RewardComputer:
             for vid, s in consensus_scores.items():
                 self._scb_gt[vid] = scb_gt_value(s, scb_captions)
 
-    def _score(self, video_ids: Sequence[str],
-               token_rows: np.ndarray) -> np.ndarray:
+    def _reward(self, video_ids: Sequence[str],
+                token_rows: np.ndarray) -> np.ndarray:
         """(N, L) 0-terminated id rows -> per-row CIDEr-D against the
         references of row i's video (``video_ids[i // (N / B)]``)."""
-        captions: List[str] = self.vocab.decode_batch(token_rows)
+        if self._native:
+            return self.scorer.score_ids(video_ids, np.asarray(token_rows))
+        return self._score(video_ids, self.vocab.decode_batch(token_rows))
+
+    def _score(self, video_ids: Sequence[str],
+               captions: List[str]) -> np.ndarray:
+        """Score each caption string against its video's references."""
         per_vid = len(captions) // len(video_ids)
         gts = {}
         res = []
@@ -82,11 +109,11 @@ class RewardComputer:
         """-> (advantage (B*S,) float32, {reward, baseline, advantage}
         means)."""
         s = self.seq_per_img
-        r_sample = self._score(video_ids, sampled)
+        r_sample = self._reward(video_ids, sampled)
         if self.baseline == "greedy":
             if greedy is None:
                 raise ValueError("greedy baseline requires greedy rollouts")
-            baseline = np.repeat(self._score(video_ids, greedy), s)
+            baseline = np.repeat(self._reward(video_ids, greedy), s)
         elif self.baseline == "scb-sample":
             per_vid = r_sample.reshape(-1, s)
             baseline = ((per_vid.sum(axis=1, keepdims=True) - per_vid)

@@ -16,7 +16,8 @@ CST runs one of two paths (``rl_iteration``):
 - ``--device_rewards 1`` (the default, as in the reference): the fused
   step (``steps.fused_cst_step``) with the on-device CIDEr-D tables built
   once here (``_setup_fused_rl``), rows in dataset video order;
-- ``--device_rewards 0``: the host reward (``RewardComputer``) driven by
+- ``--device_rewards 0``: the host reward (``RewardComputer`` on the
+  native C++ CIDEr-D, ``--native_cider 1``, or the Python one) driven by
   ``RewardPipeline`` at depth ``--overlap_rewards`` (2 by default).
 
 The divergence guard (``--divergence_guard 1``, the default) folds a
@@ -63,7 +64,9 @@ Resilience, after the reference's trainer:
   detector of the negative-advantage regime warns once, or raises
   ``NegativeAdvantageAbort`` (exit 4).
 
-Data are in-memory synthetic splits (``data/synthetic.py``); with
+Data are in-memory synthetic splits (``data/synthetic.py``), drawn
+through the ordered prefetcher (``--loader_workers`` threads; the
+``loader_err`` drill fails a read, which it retries); with
 ``--device_feats 1`` every training video's features stay on the card
 and batches gather them by ``Batch.video_ix``.  ``--use_bfloat16 1``
 builds the model at ``dtype=bfloat16`` (parameters, gradients and
@@ -80,16 +83,16 @@ import logging
 import os
 import signal
 import time
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from .. import default_device
-from ..data.loader import Batch, CaptionLoader, feat_dtype, host_feats
+from ..data.loader import (Batch, CaptionLoader, feat_dtype, host_feats,
+                           prefetch_to_device)
 from ..data.shapes import parse_feat_shapes
 from ..data.synthetic import Split, SyntheticSpec, generate
-from ..metrics.ciderd import CiderD, build_corpus_df
 from ..metrics.coco_eval import KNOWN_EVAL_METRICS, score_key
 from ..metrics.consensus import normalize_weights
 from ..metrics.tokenizer import tokenize_corpus
@@ -108,7 +111,7 @@ from . import checkpoint
 from .device_rewards import build_device_tables
 from .evaluation import eval_split
 from .pipeline import RewardPipeline
-from .rewards import RewardComputer, scb_gt_value
+from .rewards import RewardComputer, host_scorer, scb_gt_value
 from .state import Optimizer
 from .steps import fused_cst_step, rl_grad_step, rollout, xe_step
 
@@ -281,7 +284,10 @@ class Trainer:
                                         temperature=opt.consensus_temperature)
         self.loader = CaptionLoader(self.train_split, opt.batch_size,
                                     seq_per_img=opt.seq_per_img,
-                                    seed=opt.seed, consensus_weights=weights)
+                                    seed=opt.seed, consensus_weights=weights,
+                                    fault_plan=self._faults)
+        #: The prefetched training stream, started at the first batch.
+        self._batches: Optional[Iterator[Batch]] = None
         self.val_loader = CaptionLoader(
             self.val_split, opt.eval_batch_size or opt.batch_size,
             seq_per_img=1, shuffle=False)
@@ -303,6 +309,9 @@ class Trainer:
         self.feat_tables = (self._load_device_feats() if opt.device_feats
                             else None)
         self.reward_computer: Optional[RewardComputer] = None
+        #: The CST reward's scorer: "device" (the fused path), "native"
+        #: or "python" (the host path); None outside CST.
+        self.cst_scorer: Optional[str] = None
         self.pipeline: Optional[RewardPipeline] = None
         self.fused: Optional[Dict[str, Any]] = None
         #: What the fused path's setup built (times, bytes, the chunking).
@@ -377,12 +386,16 @@ class Trainer:
         return tables
 
     def _setup_host_rl(self) -> None:
+        """The host reward: the native C++ CIDEr-D under ``--native_cider
+        1`` (the default), the Python scorer when it is 0 or the library
+        cannot be built (a warning, as the reference does)."""
         opt = self.opt
         refs = tokenize_corpus(self.train_split.refs)
-        df, ndocs = build_corpus_df(refs)
+        scorer, self.cst_scorer = host_scorer(refs, self.vocab.word_to_ix,
+                                              native=bool(opt.native_cider))
+        self.registry.set_info("cst_scorer", self.cst_scorer)
         self.reward_computer = RewardComputer(
-            self.vocab, CiderD(df_mode="corpus", df=df,
-                               ref_len=float(ndocs)),
+            self.vocab, scorer,
             refs, seq_per_img=opt.seq_per_img, baseline=opt.rl_baseline,
             consensus_scores=self.train_split.consensus,
             scb_captions=opt.scb_captions)
@@ -390,8 +403,8 @@ class Trainer:
             self._pipeline_rollout, self._pipeline_grad,
             lambda ctx, s, g: self.reward_computer(ctx["video_ids"], s, g),
             depth=opt.overlap_rewards)
-        log.info("RL reward: host CIDEr-D, pipeline depth %d",
-                 self.pipeline.depth)
+        log.info("RL reward: host CIDEr-D (%s scorer), pipeline depth %d",
+                 self.cst_scorer, self.pipeline.depth)
 
     def _setup_fused_rl(self) -> None:
         """The fused path's tables: the reference CIDEr-D tables in
@@ -433,6 +446,8 @@ class Trainer:
                                    budget_bytes=budget)
         self.fused = {"corpus": corpus, "tables": tables, "scb_gt": scb_gt,
                       "ref_chunk": ref_chunk}
+        self.cst_scorer = "device"
+        self.registry.set_info("cst_scorer", self.cst_scorer)
         self.reward_setup = {
             "table_build_s": build_s,
             "table_bytes": table_bytes(corpus, tables),
@@ -525,10 +540,24 @@ class Trainer:
         self.last_rollout_steps = m["rollout_steps"]
         return [(step, m)]
 
+    def next_batch(self) -> Batch:
+        """The next batch of the training stream: the loader through the
+        ordered prefetcher (``--loader_workers`` threads, features cast on
+        the host there; under ``--device_feats 1`` neither read nor
+        threaded: ``_feats`` gathers them on the device), which starts at
+        the first call."""
+        if self._batches is None:
+            self._batches = prefetch_to_device(
+                self.loader, size=2,
+                feat_dtype=self.feat_dtype,
+                registry=self.registry, workers=self.opt.loader_workers,
+                read_feats=self.feat_tables is None)
+        return next(self._batches)
+
     def iteration(self) -> Completed:
         """Dispatch one update; -> the updates completed by this call
         (one, or for the host-reward pipeline 0 or 1)."""
-        batch = self._nan_fault_inputs(self.step, self.loader.next_batch())
+        batch = self._nan_fault_inputs(self.step, self.next_batch())
         self._captions += self.opt.batch_size * self.opt.seq_per_img
         if self.opt.use_rl:
             return self.rl_iteration(batch)
@@ -550,7 +579,8 @@ class Trainer:
         log.warning("FAULT: nan_grad at step %d; feeding NaN inputs",
                     step + 1)
         if self.opt.use_rl:
-            batch.feats = [np.full_like(f, np.nan) for f in batch.feats]
+            batch.feats = [torch.full_like(torch.as_tensor(f), float("nan"))
+                           for f in batch.feats]
         else:
             batch.weights = np.full_like(batch.weights, np.nan)
         return batch
@@ -852,10 +882,12 @@ class Trainer:
         return self._result()
 
     def close(self) -> None:
-        """Write ``telemetry.json`` (when ``train`` ran) with this
-        process's kernel launches, close ``metrics.jsonl`` and stop the
-        watchdog."""
+        """Join the prefetch workers, write ``telemetry.json`` (when
+        ``train`` ran) with this process's kernel launches, close
+        ``metrics.jsonl`` and stop the watchdog."""
         try:
+            if self._batches is not None:
+                self._batches.close()
             if self._sink_open:
                 for key, n in launch_counts_by_dtype().items():
                     self.registry.set_gauge(f"launches/{key}", n)

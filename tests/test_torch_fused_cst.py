@@ -389,15 +389,15 @@ def test_divergence_rolls_back_then_gives_up(tmp_path, monkeypatch):
         BASE + ["--max_epochs", "4", "--divergence_max_bad", "2",
                 "--divergence_max_rollbacks", "1",
                 "--checkpoint_path", str(tmp_path)]))
-    real = trainer.loader.next_batch
+    real = trainer.loader.assemble
 
-    def batch():
-        b = real()
-        if trainer.step >= 3:
+    def batch(plan, read_feats=True):   # every batch from the fourth on
+        b = real(plan, read_feats)
+        if plan.seq >= 3:
             b.weights = np.full_like(b.weights, np.nan)
         return b
 
-    monkeypatch.setattr(trainer.loader, "next_batch", batch)
+    monkeypatch.setattr(trainer.loader, "assemble", batch)
     with pytest.raises(DivergenceUnrecoverable):
         trainer.train()
     assert trainer.guard.rollbacks == 2 and trainer.guard.total_skipped == 4

@@ -58,7 +58,15 @@ def test_sources_found():
             "synthetic.py", "ciderd.py", "eval.py", "coco_eval.py",
             "bleu.py", "meteor.py", "rouge.py", "exitcodes.py", "faults.py",
             "integrity.py", "preemption.py", "watchdog.py", "registry.py",
-            "checkpoint.py"} <= names
+            "checkpoint.py", "bench.py", "flops.py", "loader.py",
+            "rewards.py", "tokenizer.py"} <= names
+    native = PKG / "native"
+    assert {"__init__.py", "ciderd.cpp", "tokenizer.cpp"} <= {
+        p.name for p in native.iterdir()}
+    # Both bench modules, the port's own, beside the top-level one.
+    assert {p.relative_to(PKG).as_posix() for p in _sources()
+            if p.name == "bench.py"} >= {"bench.py", "data/bench.py",
+                                         "serving/bench.py"}
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: str(
