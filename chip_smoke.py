@@ -106,7 +106,24 @@ Phases, each printed as it runs; any failure exits non-zero:
    serving`` greedy (24 requests at 8 Hz, buckets 1,4,8) and at beam 5
    (8 requests), every request answered and K2 launched, and ``--stage
    data --loader_workers 4`` paced at this run's XE step time.  Each
-   record is printed as its own line.
+   record is printed as its own line;
+12. files: phase 7's splits written as the port's split files
+   (``synthetic.write_split``: ``.npy`` features, the label ``.npz``, the
+   json files and the df and consensus pickles of the port's prepro;
+   seconds and bytes printed); XE at 64 x 20 with K1 through ``Trainer``
+   from the memory map (``--loader_workers 4``), from preloaded features
+   (``--preload_feats 1``) and from the in-memory split, each 2 + 6 steps,
+   losses bit-identical across the three, ms/step and the data-wait share
+   of each; fused CST with the scb-gt baseline on K2 from the files with
+   ``--train_cached_tokens`` and ``--train_bcmrscores_pkl`` against the
+   in-memory split's own df and scores, 2 steps each, rewards, advantages
+   and losses bit-identical; phase 7's CST checkpoint evaluated at beam 5
+   through the eval CLI's ``main`` on the written val files
+   (``--test_*``), scores and captions equal to phase 9's; and an
+   exported checkpoint of those weights (``weights.to_flax``) served by a
+   ``python -m cst_captioning_tpu_torch.serve --checkpoint_path`` process
+   on the val files, 12 captions equal to phase 9's.  The phase's seconds
+   are printed (budget 120 s).
 
 Each serving phase sets every kernel's launch count to 0 just before it
 and reads the counts just after; a kernel of the path launched other
@@ -118,8 +135,8 @@ dispatched; the fused path builds no host reward.
 
 Output: phase lines as they run; then a JSON object with one entry per
 kernel and storage dtype (``storage``; times at the serving batch B = 8,
-every measured batch under ``by_batch``; launches of phases 4-7, 9 and
-10 for float32, of phases 8 and 11 for bfloat16); then the card line (``nvidia-smi``
+every measured batch under ``by_batch``; launches of phases 4-7, 9, 10
+and 12 for float32, of phases 8 and 11 for bfloat16); then the card line (``nvidia-smi``
 name and power limit); and last ``{"ok": true, "device": ...}``.
 Without a CUDA device, or run outside a checkout of the repository, the
 script exits non-zero and prints no result.
@@ -1393,10 +1410,9 @@ def eval_phase(splits, res) -> int:
     CLI's ``main`` (it raises unless every caption equals the offline
     decode's, and its result file must hold the same captions); and a
     few requests through ``serve.build_backend`` with
-    ``--checkpoint_path``, equal to the eval's predictions.  -> K2's
-    launches in the offline decode."""
-    import shutil
-
+    ``--checkpoint_path``, equal to the eval's predictions.  -> (K2's
+    launches in the offline decode, the scores, the predictions); phase
+    12 removes the checkpoints."""
     import torch
 
     from cst_captioning_tpu_torch import eval as port_eval
@@ -1522,8 +1538,7 @@ def eval_phase(splits, res) -> int:
     check_launches("serve --checkpoint_path", "K2",
                    launches_now["fused_decode_cell"], stats["decode_steps"],
                    2)
-    shutil.rmtree(CKPT_ROOT, ignore_errors=True)
-    return launches["fused_decode_cell"]
+    return launches["fused_decode_cell"], scores, preds
 
 
 # Phase 10: a training split of 6 batches of 64 x 20 an epoch.  The
@@ -1928,6 +1943,235 @@ def bench_phase(scored, bf16_measured) -> dict:
     return total
 
 
+# Phase 12: phase 7's splits written as files, under the checkpoints
+# directory (ignored by git), removed at the phase's end.
+FILES_ROOT = os.path.join(HERE, "checkpoints", "chip_smoke_files")
+FILES_STEPS = (2, 6)            # XE warm-up and timed steps per data source
+FILES_SERVE_REQUESTS = 12
+
+
+def xe_from(name: str, opt, splits, losses_of) -> dict:
+    """Phase 12's XE run of one data source: 2 warm-up and 6 timed steps
+    (K1 30 a step), with the time the loop waited in ``next_batch``.
+    -> {"ms": median ms/step, "wait_share", "losses"}."""
+    import numpy as np
+
+    from cst_captioning_tpu_torch.training.trainer import Trainer
+
+    t0 = time.perf_counter()
+    trainer = Trainer(opt, splits)
+    build_s = time.perf_counter() - t0
+    wait = [0.0]
+    fetch = trainer.next_batch
+
+    def timed_fetch():
+        t = time.perf_counter()
+        batch = fetch()
+        wait[0] += time.perf_counter() - t
+        return batch
+
+    trainer.next_batch = timed_fetch
+    try:
+        warm = timed_steps(trainer, FILES_STEPS[0], losses_of)
+        wait[0] = 0.0
+        steps = timed_steps(trainer, FILES_STEPS[1], losses_of)
+    finally:
+        trainer.close()
+    secs = np.array([sec for sec, _, _ in steps])
+    out = {"ms": float(np.median(secs)) * 1e3,
+           "wait_share": wait[0] / float(secs.sum()),
+           "losses": [float(m["loss"]) for _, done, _ in warm + steps
+                      for _, m in done],
+           "launches": sum(l["fused_additive_attention"]
+                           for _, _, l in warm + steps)}
+    print(f"files XE {name}: trainer built in {build_s:.3f} s; "
+          f"{FILES_STEPS[1]} timed steps, median {out['ms']:.3f} ms/step "
+          f"(min {secs.min() * 1e3:.3f}, max {secs.max() * 1e3:.3f}) = "
+          f"{TRAIN_ROWS / out['ms'] * 1e3:.1f} captions/s; data wait "
+          f"{wait[0] * 1e3:.3f} ms = data_wait_share {out['wait_share']:.6f}")
+    return out
+
+
+def files_phase(splits, eval_scores, eval_preds) -> dict:
+    """Phase 12: train, evaluate and serve from split files.  ->
+    {kernel: float32 launches in the phase}."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from cst_captioning_tpu_torch import eval as port_eval
+    from cst_captioning_tpu_torch import train
+    from cst_captioning_tpu_torch.data import synthetic
+    from cst_captioning_tpu_torch.data.dataset import split_files
+    from cst_captioning_tpu_torch.ops import (launch_counts,
+                                              launch_counts_by_dtype,
+                                              reset_launch_counts)
+    from cst_captioning_tpu_torch.tools.stage_chain import data_argv
+    from cst_captioning_tpu_torch.training import checkpoint
+    from cst_captioning_tpu_torch.training.trainer import Trainer
+    from cst_captioning_tpu_torch.weights import (save_exported_checkpoint,
+                                                  to_flax)
+
+    t_phase = time.perf_counter()
+    total = {"fused_additive_attention": 0, "fused_decode_cell": 0}
+    os.makedirs(FILES_ROOT, exist_ok=True)
+    root = tempfile.mkdtemp(dir=FILES_ROOT)
+    data = os.path.join(root, "data")
+    t0 = time.perf_counter()
+    spec = synthetic.SyntheticSpec(max_len=MAX_LEN)
+    written = {name: synthetic.write_split(data, name, spec, data=split)
+               for name, split in zip(("train", "val"), splits)}
+    write_s = time.perf_counter() - t0
+    sizes = {name: sum(os.path.getsize(os.path.join(data, f))
+                       for f in os.listdir(data) if f.startswith(name + "_"))
+             for name in written}
+    print(f"files: train and val splits written in {write_s:.3f} s (host): "
+          f"train {sizes['train']} bytes "
+          f"({sum(os.path.getsize(p) for p in written['train']['feat_npy'])}"
+          f" of .npy features), val {sizes['val']} bytes; "
+          + ", ".join(sorted(os.listdir(data))))
+    files = data_argv(data, "train") + data_argv(data, "val")
+    for key in ("cached_tokens", "consensus_pkl"):
+        if key not in split_files(data, "train"):
+            fail(f"phase 12: write_split wrote no {key}")
+
+    def losses_of(done, launches):
+        if launches["fused_additive_attention"] != MAX_LEN * len(done):
+            fail(f"phase 12: K1 launched "
+                 f"{launches['fused_additive_attention']} times in "
+                 f"{len(done)} teacher-forced steps")
+
+    ck = os.path.join(root, "ck")
+    runs = {}
+    for name, extra, given in (
+            ("memory-mapped", files, None),
+            ("preloaded", files + ["--preload_feats", "1"], None),
+            ("in-memory split", [], splits)):
+        opt = train.parse_args(stage_args(
+            *extra, "--loader_workers", "4", "--checkpoint_path",
+            os.path.join(ck, "xe_" + name.split()[0])))
+        runs[name] = xe_from(name, opt, given, losses_of)
+        total["fused_additive_attention"] += runs[name]["launches"]
+    want = runs["in-memory split"]["losses"]
+    for name, run in runs.items():
+        if run["losses"] != want:
+            fail(f"phase 12: XE losses {name} {run['losses']} differ from "
+                 f"the in-memory split's {want}")
+    print(f"files XE: the {len(want)} losses of the three runs bit-identical"
+          f" (first {want[0]:.6f}, last {want[-1]:.6f})")
+
+    # Fused CST, scb-gt baseline, from phase 7's WXE weights: the written
+    # pickles against the in-memory split's own df and consensus scores.
+    cst = {}
+    for name, extra, given in (
+            ("files", files, None), ("in-memory split", [], splits)):
+        t0 = time.perf_counter()
+        trainer = Trainer(train.parse_args(stage_args(
+            *extra, "--use_rl", "1", "--rl_baseline", "scb-gt",
+            "--learning_rate", "2e-5",
+            "--start_from", os.path.join(CKPT_ROOT, "wxe"),
+            "--checkpoint_path", os.path.join(ck, "cst_" + name.split()[0]))),
+            given)
+        build_s = time.perf_counter() - t0
+
+        def fused(done, launches):
+            losses_of(done, launches)
+            (_, m), = done
+            if launches["fused_decode_cell"] != 2 * float(
+                    m["rollout_steps"]):
+                fail(f"phase 12: K2 launched "
+                     f"{launches['fused_decode_cell']} times in a rollout "
+                     f"of {float(m['rollout_steps'])} steps")
+
+        try:
+            steps = timed_steps(trainer, 2, fused)
+        finally:
+            trainer.close()
+        for _, _, launches in steps:
+            for key in total:
+                total[key] += launches[key]
+        cst[name] = [{k: float(m[k]) for k in ("loss", "reward", "baseline",
+                                               "advantage")}
+                     for _, done, _ in steps for _, m in done]
+        print(f"files CST fused scb-gt, {name}: trainer and reward tables "
+              f"built in {build_s:.3f} s ({trainer.reward_setup['slots']} df "
+              f"slots); steps {[round(s * 1e3, 3) for s, _, _ in steps]} ms;"
+              f" {cst[name]}")
+    if cst["files"] != cst["in-memory split"]:
+        fail("phase 12: CST from the df and consensus pickles differs from "
+             "the in-memory split's own df and scores")
+    print("files CST: rewards, baselines, advantages and losses of "
+          "--train_cached_tokens/--train_bcmrscores_pkl bit-identical to "
+          "the in-process df and scores")
+
+    # Beam-5 eval of phase 7's CST checkpoint on the written val files.
+    cst_dir = os.path.join(CKPT_ROOT, "cst")
+    test = data_argv(data, "val", "test")
+    result = os.path.join(root, "eval_files.json")
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    rc = port_eval.main(["--checkpoint_path", cst_dir, "--beam_size",
+                         str(EVAL_BEAM), "--eval_batch_size",
+                         str(EVAL_BATCH), "--max_length", str(MAX_LEN),
+                         "--decode_chunk", str(CHUNK), "--decode_kernel",
+                         "fused", "--result_file", result, *test])
+    torch.cuda.synchronize()
+    launches = {**launch_counts(), **launch_counts_by_dtype()}
+    total["fused_decode_cell"] += launches["fused_decode_cell"]
+    with open(result) as f:
+        out = json.load(f)
+    same = sum(a == b for a, b in zip(out["predictions"], eval_preds))
+    print(f"files eval --test_* beam {EVAL_BEAM}: rc {rc}, "
+          f"{time.perf_counter() - t0:.3f} s, {same}/{len(eval_preds)} "
+          f"captions and the scores equal to phase 9's: "
+          f"{out['scores'] == eval_scores}; launches {launches}")
+    if (rc != 0 or out["scores"] != eval_scores or same != len(eval_preds)
+            or len(out["predictions"]) != len(eval_preds)):
+        fail("phase 12: the eval on the val files differs from phase 9's")
+    if launches["fused_decode_cell"] == 0 or launches["fused_decode_cell"] % 2:
+        fail(f"phase 12: eval launches {launches}")
+
+    # An exported checkpoint of the CST weights, served by the CLI.
+    saved = checkpoint.load(cst_dir)
+    exported = os.path.join(root, "exported_cst")
+    save_exported_checkpoint(exported, to_flax(saved["model"]), saved["opt"],
+                             splits[0].vocab, source=cst_dir,
+                             step=saved["step"])
+    want = {p["image_id"]: p["caption"]
+            for p in eval_preds[:FILES_SERVE_REQUESTS]}
+    lines = "".join(json.dumps({"id": i, "video_id": v}) + "\n"
+                    for i, v in enumerate(want))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "cst_captioning_tpu_torch.serve",
+         "--checkpoint_path", exported, "--beam_size", str(EVAL_BEAM),
+         "--decode_kernel", "fused", "--max_length", str(MAX_LEN),
+         "--decode_chunk", str(CHUNK), *test],
+        input=lines, cwd=HERE, env=dict(os.environ, PYTHONPATH=HERE),
+        capture_output=True, text=True, timeout=300)
+    got = {r["video_id"]: r.get("caption") for r in
+           map(json.loads, proc.stdout.splitlines()) if "video_id" in r}
+    same = sum(got.get(v) == c for v, c in want.items())
+    stats = [ln for ln in proc.stderr.splitlines() if ln.startswith("serve:")]
+    print(f"files serve --checkpoint_path <exported>: exit "
+          f"{proc.returncode}, {time.perf_counter() - t0:.3f} s (process), "
+          f"{same}/{len(want)} captions equal to phase 9's; {stats[-1:]}")
+    if proc.returncode != 0 or same != len(want):
+        print(proc.stderr[-4000:], file=sys.stderr)
+        fail("phase 12: the exported checkpoint's served captions differ "
+             "from the offline decode")
+    shutil.rmtree(FILES_ROOT, ignore_errors=True)
+    shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+    print(f"files phase: {time.perf_counter() - t_phase:.1f} s (budget "
+          f"120 s); XE ms/step memory-mapped "
+          f"{runs['memory-mapped']['ms']:.3f}, preloaded "
+          f"{runs['preloaded']['ms']:.3f}, in-memory "
+          f"{runs['in-memory split']['ms']:.3f}; launches {total}")
+    return total
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "cst_captioning_tpu_torch")):
         print("chip_smoke: no cst_captioning_tpu_torch package beside "
@@ -2005,8 +2249,7 @@ def main() -> int:
     bt_launch = bf16_train_phase(splits)
 
     # Phase 9: beam-5 evaluation of phase 7's checkpoint, K2 at 320 rows.
-    e_launch = eval_phase(splits, measured)
-    del splits
+    e_launch, e_scores, e_preds = eval_phase(splits, measured)
 
     # Phase 10: preemption, the wedge watchdog and resume through the
     # train CLI, each resumed run bit-identical to its twin.
@@ -2016,19 +2259,25 @@ def main() -> int:
     bench_launch = bench_phase(scored, bf16_measured)
     del scored
 
+    # Phase 12: train, evaluate and serve from split files.
+    f_launch = files_phase(splits, e_scores, e_preds)
+    del splits
+
     # The kernels line: one entry per kernel and storage dtype.  Launches:
-    # float32 from phases 4-7, 9 and 10, bfloat16 from phases 8 and 11;
+    # float32 from phases 4-7, 9, 10 and 12, bfloat16 from phases 8 and 11;
     # times at B=8, the
     # greedy serving batch (8-slot bucket), every measured batch under
     # ``by_batch``.
     launches = {
         ("K1", "float32"): r_launch["fused_additive_attention"]
         + t_launch["fused_additive_attention"]
-        + resume_launch["fused_additive_attention"],
+        + resume_launch["fused_additive_attention"]
+        + f_launch["fused_additive_attention"],
         ("K2", "float32"): g_launch["fused_decode_cell"]
         + beam_launch["fused_decode_cell"]
         + t_launch["fused_decode_cell"] + e_launch
-        + resume_launch["fused_decode_cell"],
+        + resume_launch["fused_decode_cell"]
+        + f_launch["fused_decode_cell"],
         ("K1", "bfloat16"): s_launch["fused_additive_attention/bfloat16"]
         + bt_launch["fused_additive_attention/bfloat16"]
         + bench_launch["fused_additive_attention"],

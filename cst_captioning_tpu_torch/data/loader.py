@@ -1,5 +1,5 @@
-"""Batch assembly over an in-memory split and its ordered prefetcher
-(counterpart of the reference's ``data/loader.py``: ``CaptionLoader``,
+"""Batch assembly over a split, in memory or on disk, and its ordered
+prefetcher (counterpart of the reference's ``data/loader.py``: ``CaptionLoader``,
 ``BatchPlan``, ``_OrderedPrefetcher`` and ``prefetch_to_device``).
 
 The same stream as the reference's for the same seed: the epoch order is
@@ -39,7 +39,7 @@ import numpy as np
 import torch
 
 from ..resilience.faults import FaultPlan, InjectedFault
-from .synthetic import Split
+from .dataset import SplitData
 
 log = logging.getLogger(__name__)
 
@@ -93,9 +93,9 @@ class BatchPlan:
 
 
 class CaptionLoader:
-    """Infinite shuffled batch stream over a ``Split``."""
+    """Infinite shuffled batch stream over a split."""
 
-    def __init__(self, split: Split, batch_size: int,
+    def __init__(self, split: SplitData, batch_size: int,
                  seq_per_img: int = 20, shuffle: bool = True, seed: int = 0,
                  consensus_weights: Optional[Dict[str, np.ndarray]] = None,
                  fault_plan: Optional[FaultPlan] = None):

@@ -5,8 +5,10 @@ reference's ``data/synthetic.py`` with the label encoding of its
 The same grammar, the same random-number chain (``seed + crc32(split)``)
 and the same feature signatures as the reference's generator, so a split
 here equals the one the reference writes to HDF5 for the same spec:
-labels, caption ranges, vocabulary and features alike.  Nothing is
-written and nothing is read: the split comes back as arrays.
+labels, caption ranges, vocabulary and features alike.  ``generate``
+returns the split as arrays; ``write_split`` writes it as the files of
+``data/dataset.py`` (the reference's file-writing ``generate``): the
+same arrays as ``.npy`` features, the rest through the port's prepro.
 
 Captions are drawn per video from one concept (subject, verb, object,
 and for the rich grammar an adjective and a preposition); features are a
@@ -16,6 +18,7 @@ features predict the captions and training has something to learn.
 
 from __future__ import annotations
 
+import os
 import zlib
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
@@ -24,6 +27,7 @@ import numpy as np
 
 from ..metrics.consensus import compute_consensus_scores
 from ..metrics.tokenizer import tokenize
+from .prepro import build_split
 from .vocab import Vocab, build_vocab
 
 _SUBJECTS = ["a man", "a woman", "a dog", "a cat", "a child"]
@@ -70,6 +74,14 @@ class Split:
     @property
     def seq_length(self) -> int:
         return self.labels.shape[1]
+
+    @property
+    def feat_dims(self) -> List[int]:
+        return [int(f.shape[-1]) for f in self.feats]
+
+    @property
+    def feat_times(self) -> List[int]:
+        return [int(f.shape[1]) for f in self.feats]
 
     def captions_for(self, video_ix: int) -> np.ndarray:
         return self.labels[self.label_start[video_ix]:
@@ -202,3 +214,35 @@ def generate(split: str = "train", spec: SyntheticSpec = SyntheticSpec(),
         vocab=vocab,
         refs=dict(zip(video_ids, captions)),
         consensus=scores)
+
+
+def save_feats(path: str, feats: np.ndarray) -> None:
+    """One modality's features as ``.npy``, (N, D) when T is 1 (the
+    reference's pooled layout), written to a temporary file and
+    renamed."""
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, "wb") as f:
+        np.save(f, feats[:, 0, :] if feats.shape[1] == 1 else feats)
+    os.replace(tmp, path)
+
+
+def write_split(root: str, split: str = "train",
+                spec: SyntheticSpec = SyntheticSpec(),
+                vocab: Optional[Vocab] = None,
+                data: Optional[Split] = None) -> Dict[str, object]:
+    """Write one split's files under ``root`` -> the path map of
+    ``prepro.build_split`` plus ``feat_npy`` (one ``<split>_feat<m>.npy``
+    per modality).  Pass the train split's ``vocab`` for val/test;
+    ``data``, a split ``generate`` already built from ``spec`` and
+    ``vocab``, is written as it is instead of being generated again."""
+    if data is None:
+        data = generate(split, spec, vocab=vocab, consensus=False)
+    paths: Dict[str, object] = dict(build_split(
+        [{"id": v, "captions": data.refs[v]} for v in data.video_ids],
+        root, split, max_len=spec.max_len, vocab=data.vocab))
+    paths["feat_npy"] = []
+    for m, feats in enumerate(data.feats):
+        path = os.path.join(root, f"{split}_feat{m}.npy")
+        save_feats(path, feats)
+        paths["feat_npy"].append(path)
+    return paths

@@ -1,5 +1,6 @@
 """Vocabulary and sequence<->string conversion (copy of the reference's
-``data/vocab.py``: ``Vocab`` and ``build_vocab``).
+``data/vocab.py``: ``Vocab``, ``build_vocab``, ``save_vocab`` and
+``load_vocab``).
 
 Token-id convention: id 0 is PAD, EOS and the decoder's BOS input at
 once; real words occupy ids 1..V, so embedding tables have V+1 rows.
@@ -7,10 +8,13 @@ once; real words occupy ids 1..V, so embedding tables have V+1 rows.
 
 from __future__ import annotations
 
+import json
 from collections import Counter
 from typing import Dict, Iterable, List, Mapping, Sequence
 
 import numpy as np
+
+from ..resilience.integrity import atomic_json_write
 
 PAD_EOS = 0  # id 0: padding, end-of-sequence, and the decoder's BOS input
 UNK_TOKEN = "<unk>"
@@ -85,3 +89,13 @@ def build_vocab(tokenized_captions: Iterable[Sequence[str]],
     if add_unk and UNK_TOKEN not in words:
         words.append(UNK_TOKEN)
     return Vocab({i + 1: w for i, w in enumerate(words)})
+
+
+def save_vocab(path: str, vocab: Vocab) -> None:
+    """``{"ix_to_word": {...}}``, written atomically."""
+    atomic_json_write(path, {"ix_to_word": vocab.to_json()})
+
+
+def load_vocab(path: str) -> Vocab:
+    with open(path) as f:
+        return Vocab.from_json(json.load(f)["ix_to_word"])

@@ -1,14 +1,22 @@
 """Evaluation CLI of the port (counterpart of the root ``eval.py``).
 
     python -m cst_captioning_tpu_torch.eval --checkpoint_path ck/cst \\
+        --test_feat_npy test_feat0.npy test_feat1.npy \\
+        --test_label_npz test_label.npz --test_info_json test_info.json \\
+        --test_cocofmt_file test_cocofmt.json \\
         --beam_size 5 --result_file scores.json
 
-Loads the best verified step of a directory the train CLI wrote and rebuilds the
-model from the options saved in it: the architecture comes from the
+``--checkpoint_path`` is the best verified step of a directory the train
+CLI wrote, or an exported checkpoint (``weights.py``; the reference's
+checkpoints through ``export_for_torch.py checkpoint``).  The model is
+rebuilt from the options saved in it: the architecture comes from the
 checkpoint, and of this CLI's flags only ``--max_length`` overrides it
-(the decode length; the data keep the checkpoint's).  The data are the
-checkpoint's synthetic val split, rebuilt from its saved spec and seed
-(the train split is built for its vocabulary alone).  Every val video is
+(the decode length).  The data are the ``--test_*`` files
+(``data/dataset.py``; the vocabulary is the test split's info json, as
+the reference's ``eval.py`` reads it); without them, the val split the
+checkpoint was trained with (its files, or its synthetic spec and seed
+rebuilt; the train split is built for its vocabulary alone).  An
+exported checkpoint needs the ``--test_*`` files.  Every video is
 decoded (``--beam_size``, 1 = greedy) in batches of ``--eval_batch_size``
 (0 = ``--batch_size``) and scored by ``language_eval``: BLEU-1..4,
 METEOR_approx, ROUGE-L and CIDEr.  ``--engine serving`` decodes the split
@@ -34,9 +42,9 @@ from typing import Any, Dict, List, Tuple
 import torch
 
 from . import default_device
+from .data.dataset import (CaptionDataset, SplitData, add_split_args,
+                           paths_from_opt, refuse_h5_flags)
 from .data.loader import CaptionLoader
-from .data.shapes import parse_feat_shapes
-from .data.synthetic import Split
 from .data.vocab import Vocab
 from .metrics.coco_eval import language_eval
 from .serving.buckets import parse_buckets
@@ -45,6 +53,8 @@ from .train import parse_args as train_args
 from .training import checkpoint
 from .training.evaluation import decode_split
 from .training.trainer import build_model, build_splits
+from .weights import (exported_model_opts, from_flax, is_exported_checkpoint,
+                      load_exported_checkpoint)
 
 log = logging.getLogger("cst_captioning_tpu_torch.eval")
 
@@ -52,7 +62,10 @@ log = logging.getLogger("cst_captioning_tpu_torch.eval")
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--checkpoint_path", required=True,
-                   help="a directory the train CLI wrote (its best step)")
+                   help="a directory the train CLI wrote (its best step), "
+                        "or an exported checkpoint")
+    add_split_args(p.add_argument_group("data (default: the checkpoint's "
+                                        "val split)"), "test")
     p.add_argument("--beam_size", type=int, default=5)
     p.add_argument("--length_norm", type=float, default=0.0)
     p.add_argument("--decode_chunk", type=int, default=8)
@@ -76,27 +89,47 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--result_file", default=None)
     p.add_argument("--device", default=None,
                    help="torch device; default cuda (raises without a GPU)")
-    return p.parse_args(argv)
+    raw = sys.argv[1:] if argv is None else list(argv)
+    refuse_h5_flags(p, raw)
+    return p.parse_args(raw)
 
 
 def load_checkpoint_model(checkpoint_path: str, device: torch.device,
                           decode_kernel: str = "reference",
-                          pallas_attention: int = 0
-                          ) -> Tuple[Any, Vocab, Split, argparse.Namespace]:
-    """Rebuild the best step of a train-CLI directory -> (model in eval
-    mode on ``device``, vocabulary, val split, the training options).
-    The architecture and the data spec come from the options saved in the
-    checkpoint; the decode cell from the arguments."""
-    saved = checkpoint.load(checkpoint_path)
+                          pallas_attention: int = 0, test_paths=None
+                          ) -> Tuple[Any, Vocab, SplitData,
+                                     argparse.Namespace]:
+    """Rebuild the best step of a train-CLI directory, or an exported
+    checkpoint -> (model in eval mode on ``device``, vocabulary, the data
+    split, the training options).  The architecture comes from the
+    options saved in the checkpoint, the decode cell from the arguments.
+    The split is ``test_paths``' (a ``SplitPaths``) with its vocabulary
+    when given, else the checkpoint's val split with its train split's
+    vocabulary (an exported checkpoint has no split of its own)."""
     opt = train_args([])
-    vars(opt).update(saved["opt"])
+    exported = is_exported_checkpoint(checkpoint_path)
+    if exported:
+        params, saved_opt, _ = load_exported_checkpoint(checkpoint_path)
+        vars(opt).update(exported_model_opts(saved_opt))
+        state = from_flax(params)
+    else:
+        saved = checkpoint.load(checkpoint_path)
+        vars(opt).update(saved["opt"])
+        state = saved["model"]
     opt.use_consensus_weights, opt.use_rl = 0, 0     # no consensus scores
-    train, val = build_splits(opt, train_features=False)
     opt.decode_kernel, opt.pallas_attention = decode_kernel, pallas_attention
-    model = build_model(opt, train.vocab.size_with_pad,
-                        [d for _, d in parse_feat_shapes(opt.feat_shapes)])
-    model.load_state_dict(saved["model"])
-    return model.eval().to(device), train.vocab, val, opt
+    if test_paths is not None:
+        split = CaptionDataset(test_paths)
+        vocab = split.vocab
+    elif exported:
+        raise ValueError(f"{checkpoint_path} is an exported checkpoint, "
+                         "which holds no data: pass the --test_* files")
+    else:
+        train, split = build_splits(opt, train_features=False)
+        vocab = train.vocab
+    model = build_model(opt, vocab.size_with_pad, split.feat_dims)
+    model.load_state_dict(state)
+    return model.eval().to(device), vocab, split, opt
 
 
 def eval_via_serving_engine(model, loader, vocab: Vocab, max_len: int,
@@ -132,7 +165,7 @@ def evaluate(args: argparse.Namespace) -> Dict[str, Any]:
     device = default_device(args.device)
     model, vocab, val, opt = load_checkpoint_model(
         args.checkpoint_path, device, args.decode_kernel,
-        args.pallas_attention)
+        args.pallas_attention, test_paths=paths_from_opt(args, "test"))
     max_len = args.max_length or opt.max_length
     loader = CaptionLoader(val, args.eval_batch_size or args.batch_size,
                            seq_per_img=1, shuffle=False)

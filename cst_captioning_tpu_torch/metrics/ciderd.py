@@ -6,12 +6,16 @@ the reference (the "D"), TF-IDF with log document frequency, per-n
 averaging, x10 final scale.  ``df_mode="corpus"`` takes document
 frequencies built once over the training references (the reward path);
 any other mode derives them from the references of each
-``compute_score`` call (validation).
+``compute_score`` call (validation).  ``save_corpus_df`` and
+``load_corpus_df`` write and read the reference's df pickle (its
+``--train_cached_tokens`` file): ``{"df": {n-gram word tuple: count},
+"ref_len": documents}``.
 """
 
 from __future__ import annotations
 
 import math
+import pickle
 from collections import defaultdict
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
@@ -36,6 +40,24 @@ def build_corpus_df(
         for ng in seen:
             df[ng] += 1.0
     return dict(df), len(tokenized_refs)
+
+
+def save_corpus_df(path: str, df: Dict[NGram, float], num_docs: int) -> None:
+    with open(path, "wb") as f:
+        pickle.dump({"df": df, "ref_len": float(num_docs)}, f,
+                    protocol=pickle.HIGHEST_PROTOCOL)
+
+
+def load_corpus_df(path: str) -> Tuple[Dict[NGram, float], float]:
+    """-> (df, number of documents).  A file that is not such a pickle
+    raises: a run must never train on another df than the one named."""
+    with open(path, "rb") as f:
+        blob = pickle.load(f)
+    try:
+        return blob["df"], float(blob["ref_len"])
+    except (KeyError, TypeError):
+        raise ValueError(f"{path}: not a corpus-df pickle (want a dict "
+                         "with 'df' and 'ref_len')") from None
 
 
 class CiderD:

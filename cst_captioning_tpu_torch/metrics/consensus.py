@@ -4,11 +4,14 @@ reference's ``metrics/consensus.py``, Python path).
 Caption j of video v is scored with CIDEr-D against the other captions of
 v (leave-one-out), with document frequencies from the whole training
 corpus.  ``normalize_weights`` turns the scores into the WXE weights; the
-raw scores are the ``scb-gt`` baseline.
+raw scores are the ``scb-gt`` baseline.  ``save_consensus`` and
+``load_consensus`` write and read the reference's pickle of them (its
+``--train_bcmrscores_pkl`` file): ``{video_id: float array}``.
 """
 
 from __future__ import annotations
 
+import pickle
 from collections import Counter
 from typing import Dict, Mapping, Sequence
 
@@ -62,3 +65,20 @@ def normalize_weights(scores: Mapping[str, np.ndarray],
         e = np.exp(z)
         out[vid] = (e / e.sum()) * len(s)
     return out
+
+
+def save_consensus(path: str, scores: Mapping[str, np.ndarray]) -> None:
+    with open(path, "wb") as f:
+        pickle.dump({k: np.asarray(v) for k, v in scores.items()}, f,
+                    protocol=pickle.HIGHEST_PROTOCOL)
+
+
+def load_consensus(path: str) -> Dict[str, np.ndarray]:
+    """-> ``{video_id: float64 array}``; a file that is not such a
+    pickle raises."""
+    with open(path, "rb") as f:
+        blob = pickle.load(f)
+    if not isinstance(blob, dict):
+        raise ValueError(f"{path}: not a consensus pickle (want a dict of "
+                         f"video id -> scores, got {type(blob).__name__})")
+    return {str(k): np.asarray(v, dtype=np.float64) for k, v in blob.items()}

@@ -16,13 +16,16 @@ Three backends.  The first two serve a seeded feature table (ids ``v0``
   ``{id: word}`` vocabulary.  Widths come from the weights; the feature
   dims of ``--feat_shapes`` must match them.
 - **a trained checkpoint** (``--checkpoint_path``): the best step of
-  a directory the train CLI wrote, rebuilt as ``eval.py`` rebuilds it (the
-  architecture from the checkpoint's saved options; ``--decode_kernel``
-  and ``--pallas_attention`` from this CLI).  Video ids are those of the
-  checkpoint's synthetic val split (``val_video{i}``) with that split's
-  features, and ``--max_length`` defaults to the checkpoint's, so the
-  captions equal the eval CLI's predictions at the same beam and decode
-  settings.
+  a directory the train CLI wrote, or an exported checkpoint (the
+  reference's, through ``export_for_torch.py checkpoint``), rebuilt as
+  ``eval.py`` rebuilds it (the architecture from the checkpoint's saved
+  options; ``--decode_kernel`` and ``--pallas_attention`` from this CLI).
+  Video ids and features are those of the ``--test_*`` files
+  (``data/dataset.py``), as the reference's ``scripts/serve.py`` serves
+  them, or without them those of the checkpoint's val split (an exported
+  checkpoint needs the files); ``--max_length`` defaults to the
+  checkpoint's, so the captions equal the eval CLI's predictions at the
+  same beam and decode settings.
 
 Protocol and shutdown: ``serving/server.py`` (stdin EOF exits 0, SIGTERM
 drains and exits 75).  Engine stats go to stderr as one JSON line.
@@ -41,6 +44,7 @@ import numpy as np
 import torch
 
 from . import default_device
+from .data.dataset import add_split_args, paths_from_opt, refuse_h5_flags
 from .data.shapes import parse_feat_shapes
 from .data.vocab import Vocab
 from .eval import load_checkpoint_model
@@ -55,8 +59,11 @@ def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--serve_demo", type=int, default=0)
     p.add_argument("--checkpoint_path", default="",
-                   help="serve the best step of a train-CLI directory on its val "
-                        "split's videos")
+                   help="serve the best step of a train-CLI directory, or "
+                        "an exported checkpoint, on the --test_* split's "
+                        "videos (default: the checkpoint's val split)")
+    add_split_args(p.add_argument_group("data of --checkpoint_path"),
+                   "test")
     p.add_argument("--params_npz", default="")
     p.add_argument("--vocab_json", default="")
     p.add_argument("--rnn_size", type=int, default=512)
@@ -90,7 +97,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--serve_queue_limit", type=int, default=64)
     p.add_argument("--device", default=None,
                    help="torch device; default cuda (raises without a GPU)")
-    opt = p.parse_args(argv)
+    raw = sys.argv[1:] if argv is None else list(argv)
+    refuse_h5_flags(p, raw)
+    opt = p.parse_args(raw)
     if not (opt.serve_demo or opt.checkpoint_path
             or (opt.params_npz and opt.vocab_json)):
         p.error("pass --serve_demo 1, --checkpoint_path, or --params_npz "
@@ -103,18 +112,19 @@ def build_backend(opt):
     sets ``opt.max_length`` where it was left to the backend."""
     device = default_device(opt.device)
     if opt.checkpoint_path:
-        model, vocab, val, saved = load_checkpoint_model(
+        model, vocab, split, saved = load_checkpoint_model(
             opt.checkpoint_path, device, opt.decode_kernel,
-            opt.pallas_attention)
+            opt.pallas_attention, test_paths=paths_from_opt(opt, "test"))
         if opt.max_length is None:
             opt.max_length = saved.max_length
-        index = {vid: i for i, vid in enumerate(val.video_ids)}
+        index = {vid: i for i, vid in enumerate(split.video_ids)}
 
         def split_feats(video_id):
             i = index.get(str(video_id))
-            return None if i is None else [f[i] for f in val.feats]
+            return (None if i is None
+                    else [f[0] for f in split.features(np.asarray([i]))])
 
-        return (model, vocab, [f.shape[1:] for f in val.feats],
+        return (model, vocab, list(zip(split.feat_times, split.feat_dims)),
                 split_feats)
     if opt.max_length is None:
         opt.max_length = 30

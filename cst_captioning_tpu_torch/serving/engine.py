@@ -476,7 +476,7 @@ def serve_decode_split(model, loader, vocab, max_len: int,
     batch is submitted and then runs to idle."""
     ds = loader.ds
     engine = ServingEngine(
-        model, [f.shape[1:] for f in ds.feats], max_len=max_len,
+        model, list(zip(ds.feat_times, ds.feat_dims)), max_len=max_len,
         beam_size=beam_size, length_norm=length_norm,
         decode_chunk=decode_chunk, bucket_sizes=bucket_sizes,
         queue_limit=0)

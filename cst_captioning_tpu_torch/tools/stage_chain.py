@@ -40,6 +40,19 @@ every stage directory this chain has written (the CST directory of the
 ``--cst_*`` options), writes ``{stage}_beam5.json`` into ``--out_dir``
 and prints Bleu_1-4, METEOR_approx, ROUGE_L and CIDEr beside the
 reference chain's beam-5 scores.
+
+``--data_dir DIR`` runs the chain on the split files in ``DIR``
+(``data/dataset.py``: ``train_*`` and ``val_*``, as the port's prepro,
+``synthetic.write_split`` or ``export_for_torch.py data`` write them) in
+place of the synthetic spec: every stage reads ``train_feat<m>.npy``,
+``train_label.npz``, ``train_info.json`` and ``train_cocofmt.json`` (and
+the ``val_*`` files), with ``train_ciderdf.pkl`` as
+``--train_cached_tokens`` and ``train_consensus.pkl`` as
+``--train_bcmrscores_pkl`` where they exist; the eval stage decodes the
+val files through ``--test_*``.  ``--start_from DIR`` starts CST from
+``DIR`` (a train-CLI directory or an exported checkpoint, e.g. the
+reference chain's WXE stage through ``export_for_torch.py checkpoint``)
+in place of this chain's WXE stage.
 """
 
 from __future__ import annotations
@@ -50,7 +63,9 @@ import os
 import subprocess
 import sys
 import time
+from typing import Optional
 
+from ..data.dataset import split_files
 from ..resilience import exitcodes
 
 #: Consecutive resumable or wedged attempts of a stage that move none of
@@ -80,20 +95,46 @@ REFERENCE_BEAM5 = {
 }
 
 
+def data_argv(data_dir: str, split: str,
+              as_split: Optional[str] = None) -> list:
+    """The file flags of ``split``'s files in ``data_dir`` (named
+    ``--{as_split}_*``)."""
+    files = split_files(data_dir, split)
+    name = as_split or split
+    out = [f"--{name}_feat_npy", *files["feat_npy"],
+           f"--{name}_label_npz", files["label_npz"],
+           f"--{name}_info_json", files["info_json"]]
+    if "cocofmt_json" in files:
+        out += [f"--{name}_cocofmt_file", files["cocofmt_json"]]
+    if name == "train":
+        for flag, key in (("--train_cached_tokens", "cached_tokens"),
+                          ("--train_bcmrscores_pkl", "consensus_pkl")):
+            if key in files:
+                out += [flag, files[key]]
+    return out
+
+
 def stage_argv(out_dir: str, xe_patience: int = 25,
                cst_baseline: str = "scb-sample",
                cst_temperature: float = 1.0,
-               cst_device_rewards: int = 1, use_bfloat16: int = 0) -> dict:
-    common = ["--synthetic_videos", "512", "--synthetic_val_videos", "128",
-              "--synthetic_rich_vocab", "400", "--captions_per_video", "20",
-              "--feat_shapes", "28x2048,1x4096", "--synthetic_seed", "0",
-              "--batch_size", "32", "--seq_per_img", "20",
-              "--rnn_size", "192", "--input_encoding_size", "192",
-              "--att_size", "192", "--max_length", "30", "--seed", "123",
-              "--decode_chunk", "8", "--log_every", "10",
-              "--fast_val", "1", "--eval_metric", "CIDEr",
-              "--pallas_attention", "1", "--decode_kernel", "fused",
-              "--use_bfloat16", str(use_bfloat16)]
+               cst_device_rewards: int = 1, use_bfloat16: int = 0,
+               data_dir: Optional[str] = None,
+               start_from: Optional[str] = None) -> dict:
+    if data_dir:
+        data = data_argv(data_dir, "train") + data_argv(data_dir, "val")
+    else:
+        data = ["--synthetic_videos", "512", "--synthetic_val_videos", "128",
+                "--synthetic_rich_vocab", "400", "--captions_per_video",
+                "20", "--feat_shapes", "28x2048,1x4096",
+                "--synthetic_seed", "0"]
+    common = data + [
+        "--batch_size", "32", "--seq_per_img", "20",
+        "--rnn_size", "192", "--input_encoding_size", "192",
+        "--att_size", "192", "--max_length", "30", "--seed", "123",
+        "--decode_chunk", "8", "--log_every", "10",
+        "--fast_val", "1", "--eval_metric", "CIDEr",
+        "--pallas_attention", "1", "--decode_kernel", "fused",
+        "--use_bfloat16", str(use_bfloat16)]
     if use_bfloat16:
         common += ["--device_feats", "1"]
     sched = ["--learning_rate_decay_every", "30",
@@ -119,7 +160,8 @@ def stage_argv(out_dir: str, xe_patience: int = 25,
             "--temperature", str(cst_temperature),
             "--device_rewards", str(cst_device_rewards),
             "--max_patience", "0", "--max_epochs", "12",
-            "--learning_rate", "2e-5", "--start_from", f"{ck}/wxe",
+            "--learning_rate", "2e-5",
+            "--start_from", start_from or f"{ck}/wxe",
             "--checkpoint_path", f"{ck}/{cst_dir}"],
     }
 
@@ -199,6 +241,13 @@ def main(argv=None) -> int:
                    help="CST's reward: 1 = the fused on-device CIDEr-D "
                         "step (the reference chain's device_rewards 1), "
                         "0 = the host reward pipeline")
+    p.add_argument("--data_dir", default=None,
+                   help="run on the train_*/val_* split files in this "
+                        "directory instead of the synthetic spec")
+    p.add_argument("--start_from", default=None,
+                   help="CST starts from this directory (a train-CLI "
+                        "directory or an exported checkpoint) instead of "
+                        "this chain's WXE stage")
     p.add_argument("--wedge_timeout", type=float, default=0.0,
                    help="each train stage's --wedge_timeout (exit 124 and "
                         "a resumed attempt after that many seconds without "
@@ -207,11 +256,15 @@ def main(argv=None) -> int:
     os.makedirs(args.out_dir, exist_ok=True)
     stages = stage_argv(args.out_dir, args.xe_max_patience,
                         args.cst_baseline, args.cst_temperature,
-                        args.cst_device_rewards, args.use_bfloat16)
+                        args.cst_device_rewards, args.use_bfloat16,
+                        args.data_dir, args.start_from)
     results = {}
     for name in args.stages.split(","):
         if name == "eval":
-            results["eval"] = eval_stage(args.out_dir, stages)
+            results["eval"] = eval_stage(
+                args.out_dir, stages,
+                data_argv(args.data_dir, "val", "test")
+                if args.data_dir else [])
             if results["eval"] is None:
                 return 1
             continue
@@ -248,8 +301,9 @@ def main(argv=None) -> int:
     return 0
 
 
-def eval_stage(out_dir: str, stages: dict):
-    """Beam-5 eval of each stage's best step -> {stage: scores}, or None
+def eval_stage(out_dir: str, stages: dict, data: list):
+    """Beam-5 eval of each stage's best step on ``data`` (``--test_*``
+    flags; none: the stage's own val split) -> {stage: scores}, or None
     when an eval failed."""
     scores = {}
     for name in ("xe", "wxe", "cst"):
@@ -264,7 +318,8 @@ def eval_stage(out_dir: str, stages: dict):
                 [sys.executable, "-m", "cst_captioning_tpu_torch.eval",
                  "--checkpoint_path", ck_dir, "--beam_size", "5",
                  "--batch_size", "32", "--max_length", "30",
-                 "--decode_kernel", "fused", "--result_file", result],
+                 "--decode_kernel", "fused", "--result_file", result,
+                 *data],
                 stdout=subprocess.PIPE, stderr=log, text=True, check=False)
         if proc.returncode != 0:
             print(f"eval of {ck_dir} failed with exit code "

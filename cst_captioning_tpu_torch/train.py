@@ -17,11 +17,22 @@ batches ahead of the step, in the loader's own order.  The divergence guard
 (``--divergence_guard 1``) skips non-finite updates on the device and
 rolls back after ``--divergence_max_bad`` in a row.
 
-Flags keep the reference's names (its ``opts.py``).  The data are
-synthetic splits built in memory from ``--synthetic_seed``
+Flags keep the reference's names (its ``opts.py``).  The data are the
+files of a prepro'd split (``data/dataset.py``): ``--train_feat_npy``
+(one ``.npy`` per modality), ``--train_label_npz``, ``--train_info_json``,
+``--train_cocofmt_file`` and the same for ``--val_*``, read from the
+memory map or preloaded (``--preload_feats 1``), with the reference's
+pickles ``--train_cached_tokens`` (the CST reward's corpus df) and
+``--train_bcmrscores_pkl`` (consensus scores: the WXE weights at
+``--consensus_temperature`` and the scb-gt baseline).  The reference's
+``--*_feat_h5``/``--*_label_h5`` are a usage error: convert the files
+once with ``export_for_torch.py data``.  Without files the splits are
+synthetic, built in memory from ``--synthetic_seed``
 (``--synthetic_videos``, ``--synthetic_val_videos``,
 ``--synthetic_rich_vocab``, ``--captions_per_video``, ``--feat_shapes``,
 ``--max_length``), the generator of the reference's ``data/synthetic.py``.
+``--start_from`` takes a train-CLI directory or an exported checkpoint
+(``export_for_torch.py checkpoint``).
 Runs on the CUDA device unless ``--device cpu`` is given; without a GPU
 it raises instead of running on the CPU.  Validation scores the val split
 with ``language_eval`` (``--fast_val 1``: CIDEr and the selection metric
@@ -51,6 +62,7 @@ import logging
 import os
 import sys
 
+from .data.dataset import add_split_args, refuse_h5_flags
 from .metrics.coco_eval import KNOWN_EVAL_METRICS
 from .resilience.exitcodes import EXIT_ADVANTAGE_ABORT, EXIT_OK, EXIT_PREEMPTED
 from .resilience.faults import FaultPlan
@@ -79,7 +91,21 @@ def positive_int(text: str) -> int:
 
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    g = p.add_argument_group("data (synthetic, in memory)")
+    g = p.add_argument_group("data (files)")
+    for split in ("train", "val"):
+        add_split_args(g, split)
+    g.add_argument("--train_cached_tokens", default=None,
+                   help="the corpus-df pickle of the CST reward (prepro's "
+                        "<split>_ciderdf.pkl); default: the df of the "
+                        "training references")
+    g.add_argument("--train_bcmrscores_pkl", default=None,
+                   help="the consensus-score pickle (prepro's "
+                        "<split>_consensus.pkl): WXE weights and the "
+                        "scb-gt baseline")
+    g.add_argument("--preload_feats", type=int, default=0,
+                   help="1 = read every feature file into host RAM at "
+                        "start-up; 0 = read batches from the memory map")
+    g = p.add_argument_group("data (synthetic, in memory; without files)")
     g.add_argument("--synthetic_videos", type=int, default=512)
     g.add_argument("--synthetic_val_videos", type=int, default=128)
     g.add_argument("--synthetic_rich_vocab", type=int, default=0,
@@ -162,6 +188,10 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "the device, gathered by video index")
     g.add_argument("--device_feats_max_gb", type=float, default=8.0,
                    help="refuse --device_feats over this many GB")
+    g.add_argument("--device_feats_upload_mb", type=float, default=64.0,
+                   help="--device_feats uploads the table in row chunks of "
+                        "at most this many MB per modality (host memory "
+                        "holds one chunk)")
     g = p.add_argument_group("resilience")
     g.add_argument("--divergence_guard", type=int, default=1,
                    help="1 = skip a step with a non-finite loss or gradient "
@@ -221,9 +251,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     g.add_argument("--log_every", type=int, default=20)
     g.add_argument("--device", default=None,
                    help="torch device; default cuda (raises without a GPU)")
-    opt = p.parse_args(argv)
-    _warn_overlap_under_device_rewards(
-        opt, sys.argv[1:] if argv is None else argv)
+    raw = sys.argv[1:] if argv is None else list(argv)
+    refuse_h5_flags(p, raw)
+    opt = p.parse_args(raw)
+    _warn_overlap_under_device_rewards(opt, raw)
     return opt
 
 

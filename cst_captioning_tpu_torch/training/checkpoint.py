@@ -26,7 +26,9 @@ that fails verification is never restored: ``latest_verified_step`` and
 (``readonly=False``) renames torn steps aside as
 ``<step>.corrupt-quarantine`` at start and scrubs ``infos.json`` when the
 best step was one of them.  Readers (``--start_from``, eval, serve,
-``tools/bf16_parity.py``) use :func:`load`, which never writes.
+``tools/bf16_parity.py``) use :func:`load`, which never writes.  An
+exported checkpoint (``weights.py``: the reference's, converted) is read
+by ``weights.load_exported_checkpoint`` instead.
 """
 
 from __future__ import annotations

@@ -9,9 +9,12 @@ runs inside the fused step.
 
 The df is the refs-derived corpus df (the reference's default mode): the
 number of videos whose reference set contains the n-gram, as
-``metrics.ciderd.build_corpus_df``.  The reference's external-df mode
-(``--train_cached_tokens``) is not ported: the port's CLI has no cached
-token files to read.
+``metrics.ciderd.build_corpus_df``; or, with ``external_df`` and
+``external_ref_len`` (``--train_cached_tokens``, the corpus-df pickle),
+that table over its own document count, its word tuples encoded with
+the vocabulary after the references' words (so an out-of-vocabulary
+word gets the id the reference's table code gives it), and every
+reference n-gram the pickle lacks added at df 0.
 
 The tables equal the reference builder's array for array: n-grams are
 inserted in the same order (the same dict and set operations), so every
@@ -124,12 +127,16 @@ def build_device_tables(
     tokenized_refs: Mapping[str, Sequence[str]],
     word_to_ix: Optional[Mapping[str, int]] = None,
     device=None,
+    external_df: Optional[Mapping[Tuple[str, ...], float]] = None,
+    external_ref_len: Optional[float] = None,
 ) -> Tuple[CorpusTable, RefTables, Dict[str, int]]:
     """-> (CorpusTable, RefTables, {video_id: row}) with the tables on
     ``device`` (the CPU when None).
 
     Rows follow ``tokenized_refs``' iteration order: pass a mapping in
-    dataset order so ``Batch.video_ix`` indexes rows directly."""
+    dataset order so ``Batch.video_ix`` indexes rows directly.
+    ``external_df`` (word tuple -> document count) over
+    ``external_ref_len`` documents replaces the refs-derived df."""
     enc = _Encoder(word_to_ix)
     cooked = []                       # per video: [(ngram counts, length)]
     for caps in tokenized_refs.values():
@@ -140,14 +147,26 @@ def build_device_tables(
         cooked.append(refs)
 
     keys_df: Dict[Tuple[int, ...], float] = {}
-    for refs in cooked:
-        seen = set()
-        for counts, _ in refs:
-            seen.update(counts.keys())
-        for g in seen:
-            keys_df[g] = keys_df.get(g, 0.0) + 1.0
+    if external_df is not None:
+        if external_ref_len is None:
+            raise ValueError("external df requires its ref_len (num docs)")
+        keys_df = {tuple(enc(w) for w in g): float(d)
+                   for g, d in external_df.items()}
+        for refs in cooked:
+            for counts, _ in refs:
+                for g in counts:
+                    keys_df.setdefault(g, 0.0)
+        num_docs = float(external_ref_len)
+    else:
+        for refs in cooked:
+            seen = set()
+            for counts, _ in refs:
+                seen.update(counts.keys())
+            for g in seen:
+                keys_df[g] = keys_df.get(g, 0.0) + 1.0
+        num_docs = float(len(cooked))
     key1, key2, occupied, df, slot_of, num_docs = _build_hash_table(
-        keys_df, float(len(cooked)))
+        keys_df, num_docs)
     log_ref_len = math.log(max(num_docs, 1.0))
 
     n_videos = len(cooked)

@@ -40,19 +40,30 @@ def scb_gt_value(scores, scb_captions: int) -> float:
 
 
 def host_scorer(tokenized_refs: Mapping[str, Sequence[str]],
-                word_to_ix: Mapping[str, int], native: bool = True
-                ) -> Tuple[Union[CiderD, NativeCiderD], str]:
+                word_to_ix: Mapping[str, int], native: bool = True,
+                corpus_df: Optional[Tuple[Mapping[tuple, float], float]]
+                = None) -> Tuple[Union[CiderD, NativeCiderD], str]:
     """The host path's corpus-df CIDEr-D over ``tokenized_refs`` -> (the
     scorer, "native" or "python"): the C++ one when ``native`` (the
     reference's ``--native_cider 1``), the Python one when not or when
     the library cannot be built (a warning, as the reference's
-    trainer)."""
+    trainer).  ``corpus_df`` (df, number of documents), the
+    ``--train_cached_tokens`` table, replaces the df built from the
+    references in either scorer."""
     if native:
         try:
-            return NativeCiderD(tokenized_refs, word_to_ix), "native"
+            scorer = NativeCiderD(tokenized_refs, word_to_ix)
         except RuntimeError as e:       # NativeUnavailable is one
             log.warning("native CIDEr-D unavailable (%s); using Python", e)
-    df, ndocs = build_corpus_df(tokenized_refs)
+        else:
+            if corpus_df is not None:
+                try:
+                    scorer.load_df(*corpus_df)
+                except BaseException:
+                    scorer.close()
+                    raise
+            return scorer, "native"
+    df, ndocs = corpus_df or build_corpus_df(tokenized_refs)
     return CiderD(df_mode="corpus", df=df, ref_len=float(ndocs)), "python"
 
 

@@ -64,11 +64,19 @@ Resilience, after the reference's trainer:
   detector of the negative-advantage regime warns once, or raises
   ``NegativeAdvantageAbort`` (exit 4).
 
-Data are in-memory synthetic splits (``data/synthetic.py``), drawn
-through the ordered prefetcher (``--loader_workers`` threads; the
-``loader_err`` drill fails a read, which it retries); with
-``--device_feats 1`` every training video's features stay on the card
-and batches gather them by ``Batch.video_ix``.  ``--use_bfloat16 1``
+Data are the split files of ``--train_*`` and ``--val_*``
+(``data/dataset.py``: memory-mapped ``.npy`` features, or in RAM with
+``--preload_feats 1``), or in-memory synthetic splits
+(``data/synthetic.py``) when no file is given; WXE weights and the scb-gt
+baseline come from the consensus pickle ``--train_bcmrscores_pkl`` (the
+synthetic split's own scores without it), and ``--train_cached_tokens``
+gives both CST rewards their corpus df.  Batches are drawn through the
+ordered prefetcher (``--loader_workers`` threads; the ``loader_err``
+drill fails a read, which it retries); with ``--device_feats 1`` every
+training video's features stay on the card, uploaded in row chunks of
+``--device_feats_upload_mb``, and batches gather them by
+``Batch.video_ix``.  ``--start_from`` takes a train-CLI directory or an
+exported checkpoint (``weights.py``).  ``--use_bfloat16 1``
 builds the model at ``dtype=bfloat16`` (parameters, gradients and
 optimizer state stay float32) and draws the rollout noise in bfloat16;
 features travel and reside in the dtype ``feat_dtype`` resolves from
@@ -89,12 +97,14 @@ import numpy as np
 import torch
 
 from .. import default_device
+from ..data.dataset import CaptionDataset, SplitData, paths_from_opt
 from ..data.loader import (Batch, CaptionLoader, feat_dtype, host_feats,
                            prefetch_to_device)
 from ..data.shapes import parse_feat_shapes
-from ..data.synthetic import Split, SyntheticSpec, generate
+from ..data.synthetic import SyntheticSpec, generate
+from ..metrics.ciderd import load_corpus_df
 from ..metrics.coco_eval import KNOWN_EVAL_METRICS, score_key
-from ..metrics.consensus import normalize_weights
+from ..metrics.consensus import load_consensus, normalize_weights
 from ..metrics.tokenizer import tokenize_corpus
 from ..models.captioner import CaptionModel
 from ..ops import launch_counts_by_dtype
@@ -106,7 +116,8 @@ from ..resilience.guard import DivergenceGuard
 from ..resilience.preemption import PreemptedExit, PreemptionHandler
 from ..telemetry.registry import JsonlSink, MetricsRegistry
 from ..utils.watchdog import ProgressWatchdog
-from ..weights import init_like_flax_
+from ..weights import (exported_model_opts, from_flax, init_like_flax_,
+                       is_exported_checkpoint, load_exported_checkpoint)
 from . import checkpoint
 from .device_rewards import build_device_tables
 from .evaluation import eval_split
@@ -116,6 +127,11 @@ from .state import Optimizer
 from .steps import fused_cst_step, rl_grad_step, rollout, xe_step
 
 log = logging.getLogger(__name__)
+
+#: The saved options of an exported ``--start_from`` checkpoint that set
+#: the model's architecture (the training knobs stay this run's).
+ARCH_KEYS = ("rnn_size", "input_encoding_size", "att_size", "num_layers",
+             "use_attention")
 
 #: One completed update: (its step index, its metrics).
 Completed = List[Tuple[int, Dict[str, Any]]]
@@ -175,11 +191,38 @@ def phase_ms(metrics: Dict[str, Any]) -> Dict[str, float]:
     return out
 
 
-def build_splits(opt, train_features: bool = True) -> Tuple[Split, Split]:
-    """The train and val splits of the options' synthetic spec; the train
-    split carries consensus scores when WXE or the scb-gt baseline needs
-    them.  ``train_features=False`` builds the train split for its
-    vocabulary alone (evaluation and serving)."""
+def build_splits(opt, train_features: bool = True
+                 ) -> Tuple[SplitData, SplitData]:
+    """The train and val splits: the files of ``--train_*`` and
+    ``--val_*`` (both or neither), read lazily or preloaded
+    (``--preload_feats``), or else those of the options' synthetic spec.
+    The train split carries consensus scores when WXE or the scb-gt
+    baseline needs them: the pickle of ``--train_bcmrscores_pkl``, else
+    the synthetic split's own.  ``train_features=False`` builds the train
+    split for its vocabulary alone (evaluation and serving)."""
+    need_consensus = train_features and (bool(opt.use_consensus_weights) or (
+        opt.use_rl and opt.rl_baseline == "scb-gt"))
+    train_paths = paths_from_opt(opt, "train")
+    val_paths = paths_from_opt(opt, "val")
+    if train_paths is not None or val_paths is not None:
+        if train_paths is None or val_paths is None:
+            raise ValueError("the train split and the val split both come "
+                             "from files (--train_* and --val_*) or neither")
+        preload = bool(opt.preload_feats) and train_features
+        train = CaptionDataset(train_paths, preload=preload)
+        val = CaptionDataset(val_paths, preload=preload)
+    else:
+        train, val = _synthetic_splits(
+            opt, train_features,
+            need_consensus and not opt.train_bcmrscores_pkl)
+    if need_consensus and opt.train_bcmrscores_pkl:
+        train.consensus = load_consensus(opt.train_bcmrscores_pkl)
+        log.info("consensus scores of %d videos from %s",
+                 len(train.consensus), opt.train_bcmrscores_pkl)
+    return train, val
+
+
+def _synthetic_splits(opt, train_features: bool, consensus: bool):
     shapes = parse_feat_shapes(opt.feat_shapes)
 
     def spec(n):
@@ -189,11 +232,8 @@ def build_splits(opt, train_features: bool = True) -> Tuple[Split, Split]:
             feat_times=tuple(t for t, _ in shapes), seed=opt.synthetic_seed,
             rich_vocab=opt.synthetic_rich_vocab)
 
-    need_consensus = bool(opt.use_consensus_weights) or (
-        opt.use_rl and opt.rl_baseline == "scb-gt")
     train = generate("train", spec(opt.synthetic_videos),
-                     consensus=need_consensus and train_features,
-                     features=train_features)
+                     consensus=consensus, features=train_features)
     val = generate("val", spec(opt.synthetic_val_videos), vocab=train.vocab,
                    consensus=False)
     return train, val
@@ -203,6 +243,8 @@ def build_model(opt, vocab_size: int, feat_dims) -> CaptionModel:
     return CaptionModel(
         vocab_size, feat_dims, embed_size=opt.input_encoding_size,
         hidden_size=opt.rnn_size, attn_size=opt.att_size,
+        num_layers=int(getattr(opt, "num_layers", 1)),
+        use_attention=bool(getattr(opt, "use_attention", 1)),
         use_kernel_attention=bool(opt.pallas_attention),
         decode_kernel=opt.decode_kernel, drop_prob=opt.drop_prob,
         dtype=torch.bfloat16 if opt.use_bfloat16 else torch.float32)
@@ -214,7 +256,8 @@ class Trainer:
     installed ``PreemptionHandler`` whose flag the loop honors (None: the
     loop reads no signal flag)."""
 
-    def __init__(self, opt, splits: Optional[Tuple[Split, Split]] = None,
+    def __init__(self, opt,
+                 splits: Optional[Tuple[SplitData, SplitData]] = None,
                  preemption: Optional[PreemptionHandler] = None):
         if opt.eval_metric not in KNOWN_EVAL_METRICS:
             # At start-up, not after the first epoch's validation scores
@@ -263,11 +306,20 @@ class Trainer:
         self.train_split, self.val_split = splits or build_splits(opt)
         self._watchdog.beat()
         self.vocab = self.train_split.vocab
-        self.model = build_model(
-            opt, self.vocab.size_with_pad,
-            [f.shape[-1] for f in self.train_split.feats])
+        exported = None
+        if opt.start_from and is_exported_checkpoint(opt.start_from):
+            exported = load_exported_checkpoint(opt.start_from)
+            arch = {k: v for k, v in exported_model_opts(exported[1]).items()
+                    if k in ARCH_KEYS}
+            log.info("--start_from %s: the model's widths from its saved "
+                     "options %s", opt.start_from, arch)
+            vars(opt).update(arch)
+        self.model = build_model(opt, self.vocab.size_with_pad,
+                                 self.train_split.feat_dims)
         init_like_flax_(self.model, torch.Generator().manual_seed(opt.seed))
-        if opt.start_from:
+        if exported is not None:
+            self._start_from_exported(opt.start_from, *exported)
+        elif opt.start_from:
             prev = checkpoint.load(opt.start_from)
             self.model.load_state_dict(prev["model"])
             log.info("warm-started from %s (step %s, score %s)",
@@ -280,8 +332,7 @@ class Trainer:
 
         weights = None
         if opt.use_consensus_weights:
-            weights = normalize_weights(self.train_split.consensus,
-                                        temperature=opt.consensus_temperature)
+            weights = self._wxe_weights()
         self.loader = CaptionLoader(self.train_split, opt.batch_size,
                                     seq_per_img=opt.seq_per_img,
                                     seed=opt.seed, consensus_weights=weights,
@@ -347,6 +398,38 @@ class Trainer:
                         "verification; starting this stage from scratch",
                         opt.checkpoint_path)
 
+    def _start_from_exported(self, directory: str, params, _opts,
+                             vocab) -> None:
+        """``--start_from`` an exported checkpoint: its parameters, after
+        checking that its vocabulary is this run's."""
+        if vocab.to_json() != self.vocab.to_json():
+            raise ValueError(
+                f"--start_from {directory}: its vocabulary "
+                f"({len(vocab)} words) is not this run's "
+                f"({len(self.vocab)} words)")
+        self.model.load_state_dict(from_flax(params))
+        log.info("warm-started from the exported checkpoint %s", directory)
+
+    def _wxe_weights(self) -> Dict[str, np.ndarray]:
+        """The WXE weights: the train split's consensus scores normalised
+        at ``--consensus_temperature``; videos without scores keep weight
+        1 (a warning says how many)."""
+        split = self.train_split
+        if split.consensus is None:
+            raise ValueError("--use_consensus_weights 1 needs consensus "
+                             "scores: pass --train_bcmrscores_pkl")
+        weights = normalize_weights(
+            split.consensus, temperature=self.opt.consensus_temperature)
+        log.info("WXE: consensus weights for %d videos", len(weights))
+        missing = [v for v in split.video_ids if v not in weights]
+        if missing:
+            log.warning("WXE: %d training video(s) missing from the "
+                        "consensus scores (e.g. %s); their captions keep "
+                        "weight 1.0: check that --train_bcmrscores_pkl "
+                        "matches the training split", len(missing),
+                        missing[:3])
+        return weights
+
     def _restore(self, payload: Dict[str, Any]) -> None:
         """Resume from a checkpoint payload: the state, the generators,
         the run's bookkeeping, then the loader's stream and the rollback
@@ -367,23 +450,51 @@ class Trainer:
 
     def _load_device_feats(self) -> List[torch.Tensor]:
         """Every training video's features on the device, one tensor per
-        modality in ``feat_dtype`` (cast on the host first), refused over
-        ``--device_feats_max_gb``."""
+        modality in ``feat_dtype``, refused over ``--device_feats_max_gb``.
+        Uploaded in row chunks of at most ``--device_feats_upload_mb``
+        per modality, read from the split (the memory map, for files) and
+        cast on the host chunk by chunk: host memory holds one chunk, not
+        the table."""
+        split = self.train_split
+        n = split.num_videos
         itemsize = torch.finfo(self.feat_dtype).bits // 8
-        size = sum(f.size * itemsize for f in self.train_split.feats)
+        row_bytes = [t * d * itemsize
+                     for t, d in zip(split.feat_times, split.feat_dims)]
+        size = n * sum(row_bytes)
         budget = float(self.opt.device_feats_max_gb) * 1e9
         if size > budget:
             raise ValueError(
                 f"--device_feats table is {size / 1e9:.1f} GB "
-                f"({self.train_split.num_videos} videos), over the "
+                f"({n} videos), over the "
                 f"--device_feats_max_gb {budget / 1e9:.1f} GB budget: use "
                 "--device_feats 0 or raise the budget if the card fits it")
-        tables = [t.to(self.device) for t in
-                  host_feats(self.train_split.feats, self.feat_dtype)]
+        chunk = max(1, int(float(self.opt.device_feats_upload_mb) * 1e6
+                           // max(row_bytes)))
+        tables = [torch.empty((n, t, d), dtype=self.feat_dtype,
+                              device=self.device)
+                  for t, d in zip(split.feat_times, split.feat_dims)]
+        for start in range(0, n, chunk):
+            ix = np.arange(start, min(start + chunk, n))
+            for table, block in zip(tables, host_feats(
+                    split.features(ix), self.feat_dtype)):
+                table[start:start + len(ix)].copy_(block)
+            self._watchdog.beat()
         log.info("device_feats: %d videos x %d modalities on the device "
-                 "(%.3f GB, %s)", self.train_split.num_videos, len(tables),
-                 size / 1e9, self.feat_dtype)
+                 "(%.3f GB, %s) in %d chunks of up to %d rows", n,
+                 len(tables), size / 1e9, self.feat_dtype, -(-n // chunk),
+                 chunk)
         return tables
+
+    def _corpus_df(self):
+        """``--train_cached_tokens``: (df, number of documents) of the
+        corpus-df pickle, or None.  A file that is not one raises."""
+        path = self.opt.train_cached_tokens
+        if not path:
+            return None
+        df, ref_len = load_corpus_df(path)
+        log.info("CST reward: corpus df from %s (%d n-grams, %d documents)",
+                 path, len(df), int(ref_len))
+        return df, ref_len
 
     def _setup_host_rl(self) -> None:
         """The host reward: the native C++ CIDEr-D under ``--native_cider
@@ -391,8 +502,9 @@ class Trainer:
         cannot be built (a warning, as the reference does)."""
         opt = self.opt
         refs = tokenize_corpus(self.train_split.refs)
-        scorer, self.cst_scorer = host_scorer(refs, self.vocab.word_to_ix,
-                                              native=bool(opt.native_cider))
+        scorer, self.cst_scorer = host_scorer(
+            refs, self.vocab.word_to_ix, native=bool(opt.native_cider),
+            corpus_df=self._corpus_df())
         self.registry.set_info("cst_scorer", self.cst_scorer)
         self.reward_computer = RewardComputer(
             self.vocab, scorer,
@@ -421,14 +533,17 @@ class Trainer:
                 f"video {e.args[0]!r} has no reference captions; "
                 "--device_rewards needs references for every training video"
             ) from None
+        external_df, external_ref_len = self._corpus_df() or (None, None)
         t0 = time.perf_counter()
         corpus, tables, _ = build_device_tables(
-            refs, self.vocab.word_to_ix, device=self.device)
+            refs, self.vocab.word_to_ix, device=self.device,
+            external_df=external_df, external_ref_len=external_ref_len)
         build_s = time.perf_counter() - t0
         scb_gt = None
         if opt.rl_baseline == "scb-gt":
             if split.consensus is None:
-                raise ValueError("scb-gt baseline needs consensus scores")
+                raise ValueError("scb-gt baseline needs consensus scores: "
+                                 "pass --train_bcmrscores_pkl")
             missing = [v for v in split.video_ids
                        if v not in split.consensus]
             if missing:
@@ -667,7 +782,9 @@ class Trainer:
                         "patience": self.patience,
                         "history": list(self.history)},
                 "opt": {k: v for k, v in vars(self.opt).items()
-                        if isinstance(v, (str, int, float, type(None)))}}
+                        if isinstance(v, (str, int, float, type(None)))
+                        or (isinstance(v, list)
+                            and all(isinstance(x, str) for x in v))}}
 
     def _after_save(self, payload: Dict[str, Any]) -> None:
         """Bookkeeping after every durable save: the rollback snapshot,

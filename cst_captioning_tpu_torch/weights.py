@@ -1,7 +1,20 @@
-"""Weights for the port: conversion from the reference's Flax parameter
-tree, flat ``.npz`` loading, the Flax initialisers for training from
+"""Weights for the port: conversion from and to the reference's Flax
+parameter tree (``from_flax``, ``to_flax``), flat ``.npz`` loading, the
+exported checkpoint directory, the Flax initialisers for training from
 scratch (``init_like_flax_``), and the seeded weights of the serving demo
 (``init_random_``).
+
+An **exported checkpoint** is a directory holding ``params.npz`` (the
+Flax tree flat, ``"a/b/c"`` keys, as ``load_params_npz`` reads it),
+``infos.json`` (``{"opt": the options it was trained with, ...}``, the
+reference's infos file), ``vocab.json`` (``{"ix_to_word": ...}``) and
+``export.json`` (``"kind": "checkpoint"``, the SHA-256 and size of each
+of those files, the source).  ``export_for_torch.py checkpoint`` writes
+one from a reference (orbax) checkpoint; ``save_exported_checkpoint``
+writes one from the port's own weights.  ``load_exported_checkpoint``
+verifies the digests and returns the tree, the options and the
+vocabulary; ``exported_model_opts`` picks the model options the
+reference's ``eval.py`` takes from a checkpoint.
 
 Layout: Flax ``Dense`` kernels are ``(in, out)``; the port TRANSPOSES them
 into ``nn.Linear`` weights ``(out, in)``.  The LSTM gate kernels are the
@@ -20,13 +33,18 @@ builds (``encoder/embed_{m}``, ``encoder/fuse``, ``memory_proj``,
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional
+import hashlib
+import json
+import os
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
 from . import default_device
+from .data.vocab import Vocab, load_vocab, save_vocab
 from .models.captioner import CaptionModel
+from .resilience.integrity import atomic_json_write
 
 GATES = ("i", "f", "g", "o")   # flax OptimizedLSTMCell concat order
 
@@ -122,6 +140,147 @@ def from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
         raise KeyError(f"flax tree has keys the port does not know: "
                        f"{unknown}")
     return sd
+
+
+def to_flax(model_or_state: Any) -> Dict[str, Any]:
+    """The port's ``CaptionModel`` (or its state dict) -> the reference's
+    Flax parameter tree, float32 numpy arrays: the inverse of
+    ``from_flax``."""
+    sd = (model_or_state.state_dict() if hasattr(model_or_state,
+                                                 "state_dict")
+          else model_or_state)
+    sd = {k: v.detach().float().cpu().numpy() for k, v in sd.items()}
+    tree: Dict[str, Any] = {}
+
+    def put(path: str, value: np.ndarray) -> None:
+        *parents, leaf = path.split("/")
+        node = tree
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = np.ascontiguousarray(value)
+
+    def dense(src: str, dst: str) -> None:
+        put(f"{dst}/kernel", sd.pop(f"{src}.weight").T)
+        if f"{src}.bias" in sd:
+            put(f"{dst}/bias", sd.pop(f"{src}.bias"))
+
+    m = 0
+    while f"encoder.embed.{m}.weight" in sd:
+        dense(f"encoder.embed.{m}", f"encoder/embed_{m}")
+        m += 1
+    dense("encoder.fuse", "encoder/fuse")
+    dense("memory_proj", "memory_proj")
+    put("cell/embed/embedding", sd.pop("cell.embed.weight"))
+    if "cell.attn.score_v" in sd:
+        dense("cell.attn.query_proj", "cell/attn/query_proj")
+        put("cell/attn/score_v", sd.pop("cell.attn.score_v"))
+    layer = 0
+    while f"cell.lstm.{layer}.w" in sd:
+        w = sd.pop(f"cell.lstm.{layer}.w")
+        bias = sd.pop(f"cell.lstm.{layer}.bias")
+        hid = w.shape[1] // 4
+        n_in = w.shape[0] - hid
+        for k, g in enumerate(GATES):
+            cols = slice(k * hid, (k + 1) * hid)
+            put(f"cell/lstm{layer}/i{g}/kernel", w[:n_in, cols])
+            put(f"cell/lstm{layer}/h{g}/kernel", w[n_in:, cols])
+            put(f"cell/lstm{layer}/h{g}/bias", bias[cols])
+        dense(f"state_init.{layer}", f"state_init_{layer}")
+        layer += 1
+    dense("logit", "logit")
+    if sd:
+        raise KeyError(f"state dict has keys to_flax does not know: "
+                       f"{sorted(sd)}")
+    return tree
+
+
+#: What ``export.json`` says an exported checkpoint is.
+EXPORT_FILE = "export.json"
+EXPORTED_FILES = ("params.npz", "infos.json", "vocab.json")
+#: The model options the reference's ``eval.py`` takes from a
+#: checkpoint's saved options (the rest come from the command line).
+MODEL_OPT_KEYS = ("model_type", "rnn_size", "input_encoding_size",
+                  "num_layers", "att_size", "use_attention", "drop_prob",
+                  "num_heads", "num_tx_layers", "use_bfloat16", "max_length",
+                  "fusion_type")
+
+
+def _file_digest(path: str) -> Dict[str, Any]:
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for block in iter(lambda: f.read(1 << 20), b""):
+            h.update(block)
+    return {"sha256": h.hexdigest(), "bytes": os.path.getsize(path)}
+
+
+def is_exported_checkpoint(directory: str) -> bool:
+    """True when ``directory`` holds an exported checkpoint (its
+    ``export.json`` says ``"kind": "checkpoint"``)."""
+    try:
+        with open(os.path.join(directory, EXPORT_FILE)) as f:
+            return json.load(f).get("kind") == "checkpoint"
+    except (OSError, ValueError):
+        return False
+
+
+def save_params_npz(path: str, params: Mapping) -> None:
+    """A Flax tree as a flat ``"a/b/c"``-keyed npz (``load_params_npz``
+    reads it back)."""
+    with open(path, "wb") as f:
+        np.savez(f, **{k: np.asarray(v) for k, v in _flatten(params).items()})
+
+
+def save_exported_checkpoint(directory: str, params: Mapping,
+                             opts: Mapping[str, Any], vocab: Vocab,
+                             source: str, step: Optional[int] = None) -> None:
+    """Write an exported checkpoint: the Flax tree ``params``, the
+    training options ``opts``, the vocabulary, and ``export.json`` with
+    each file's digest."""
+    os.makedirs(directory, exist_ok=True)
+    save_params_npz(os.path.join(directory, "params.npz"), params)
+    atomic_json_write(os.path.join(directory, "infos.json"),
+                      {"opt": dict(opts), "best_step": step})
+    save_vocab(os.path.join(directory, "vocab.json"), vocab)
+    atomic_json_write(os.path.join(directory, EXPORT_FILE), {
+        "kind": "checkpoint", "format": 1, "source": source, "step": step,
+        "files": {n: _file_digest(os.path.join(directory, n))
+                  for n in EXPORTED_FILES}}, indent=2)
+
+
+def load_exported_checkpoint(directory: str
+                             ) -> Tuple[Dict[str, Any], Dict[str, Any],
+                                        Vocab]:
+    """-> (the Flax tree, the saved training options, the vocabulary) of
+    an exported checkpoint.  Raises unless every file matches the digest
+    ``export.json`` holds for it."""
+    with open(os.path.join(directory, EXPORT_FILE)) as f:
+        export = json.load(f)
+    if export.get("kind") != "checkpoint":
+        raise ValueError(f"{directory}: {EXPORT_FILE} is not a checkpoint's")
+    for name in EXPORTED_FILES:
+        want = export["files"][name]
+        got = _file_digest(os.path.join(directory, name))
+        if got != want:
+            raise ValueError(f"{directory}/{name}: digest {got} does not "
+                             f"match {EXPORT_FILE}'s {want}")
+    with open(os.path.join(directory, "infos.json")) as f:
+        opts = json.load(f).get("opt") or {}
+    return (load_params_npz(os.path.join(directory, "params.npz")), opts,
+            load_vocab(os.path.join(directory, "vocab.json")))
+
+
+def exported_model_opts(opts: Mapping[str, Any]) -> Dict[str, Any]:
+    """The saved options ``MODEL_OPT_KEYS`` names, refused where they ask
+    for a model the port does not have (the attention-LSTM over temporal
+    fusion only)."""
+    picked = {k: opts[k] for k in MODEL_OPT_KEYS if k in opts}
+    if picked.get("model_type", "lstm") != "lstm":
+        raise ValueError(f"model_type {picked['model_type']!r}: the port "
+                         "has the attention-LSTM only")
+    if picked.get("fusion_type", "temporal") != "temporal":
+        raise ValueError(f"fusion_type {picked['fusion_type']!r}: the port "
+                         "has temporal fusion only")
+    return picked
 
 
 def model_from_flax(params: Mapping, device=None,

@@ -59,7 +59,13 @@ def test_sources_found():
             "bleu.py", "meteor.py", "rouge.py", "exitcodes.py", "faults.py",
             "integrity.py", "preemption.py", "watchdog.py", "registry.py",
             "checkpoint.py", "bench.py", "flops.py", "loader.py",
-            "rewards.py", "tokenizer.py"} <= names
+            "rewards.py", "tokenizer.py", "dataset.py", "prepro.py",
+            "converters.py", "consensus.py", "device_rewards.py",
+            "weights.py", "stage_chain.py"} <= names
+    # The on-disk data path, the port's own copies.
+    assert {p.relative_to(PKG).as_posix() for p in PKG.rglob("*.py")} >= {
+        "data/dataset.py", "data/prepro.py", "data/converters.py",
+        "data/synthetic.py", "metrics/ciderd.py", "metrics/consensus.py"}
     native = PKG / "native"
     assert {"__init__.py", "ciderd.cpp", "tokenizer.cpp"} <= {
         p.name for p in native.iterdir()}
@@ -75,6 +81,17 @@ def test_no_reference_or_jax_imports(path):
     for mod in _imported_modules(path):
         top = mod.split(".")[0]
         assert top not in FORBIDDEN, f"{path} imports {mod}"
+
+
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: str(
+    p.relative_to(REPO)))
+def test_no_exporter_or_h5py_imports(path):
+    """The exporter (``export_for_torch.py``, JAX and ``h5py``) runs where
+    the reference's files are; the port only reads what it writes."""
+    for mod in _imported_modules(path):
+        top = mod.split(".")[0]
+        assert top not in ("export_for_torch", "h5py"), f"{path} imports {mod}"
+    assert "import export_for_torch" not in path.read_text()
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: str(
