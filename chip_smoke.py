@@ -123,7 +123,26 @@ Phases, each printed as it runs; any failure exits non-zero:
    exported checkpoint of those weights (``weights.to_flax``) served by a
    ``python -m cst_captioning_tpu_torch.serve --checkpoint_path`` process
    on the val files, 12 captions equal to phase 9's.  The phase's seconds
-   are printed (budget 120 s).
+   are printed (budget 120 s);
+13. serving, the rest, at phase 4's width and model on K2: (a) K2 called
+   twice on the same inputs at B = 1, 8, 40 in float32 and bfloat16
+   storage, bitwise equal (what the ladder's re-runs rely on); (b) 16
+   greedy ``stream`` requests through ``CaptionServer``, each stream's
+   text equal to its final caption and to phase 4's, TTFT and chunk-gap
+   p50/p99 printed; (c) 8 beam-5 streams, one terminal chunk each,
+   captions equal to phase 5's; (d) a result cache of 64 over 32 requests
+   of 8 videos: 24 hits, K2 launches equal to those of the 8 alone, the
+   hit path's milliseconds; (e) a chaos plan (``serve_wedge``,
+   ``serve_garble``, ``admit_err``) and a forced rebuild, captions
+   bit-identical to a clean run with no kernel library built or loaded,
+   then a plan past the ladder raising ``ServingUnrecoverable``; (f) a
+   deadline under one chunk answered ``expired``, the other 15 captions
+   equal to phase 4's; (g) ``python -m cst_captioning_tpu_torch.serve``
+   on ``--serve_port -1`` (2 connections x 8 requests equal to phase 4's,
+   a ``health`` op, SIGTERM with 16 more in flight: exit 75, every
+   request answered), a second process drained and aborted by a second
+   signal (exit 143) and a third given a plan past the ladder (exit 124).
+   The phase's seconds are printed (budget 90 s).
 
 Each serving phase sets every kernel's launch count to 0 just before it
 and reads the counts just after; a kernel of the path launched other
@@ -135,8 +154,8 @@ dispatched; the fused path builds no host reward.
 
 Output: phase lines as they run; then a JSON object with one entry per
 kernel and storage dtype (``storage``; times at the serving batch B = 8,
-every measured batch under ``by_batch``; launches of phases 4-7, 9, 10
-and 12 for float32, of phases 8 and 11 for bfloat16); then the card line (``nvidia-smi``
+every measured batch under ``by_batch``; launches of phases 4-7, 9, 10,
+12 and 13 for float32, of phases 8 and 11 for bfloat16); then the card line (``nvidia-smi``
 name and power limit); and last ``{"ok": true, "device": ...}``.
 Without a CUDA device, or run outside a checkout of the repository, the
 script exits non-zero and prints no result.
@@ -2172,6 +2191,449 @@ def files_phase(splits, eval_scores, eval_preds) -> dict:
     return total
 
 
+# Phase 13: serving, the rest.  The CLI processes of (e) and (g) start
+# after the measured in-process parts, so their start-up does not share
+# the card and the host with the measurements.
+REST_BUDGET_S = 90.0
+REST_CACHE_VIDEOS, REST_CACHE_REQUESTS = 8, 32
+
+
+def k2_rerun_determinism() -> None:
+    """Phase 13a: the same K2 call twice at B = 1, 8, 40, in float32 and
+    bfloat16 storage, bitwise equal: what the ladder's re-runs rely on.
+    Comparison launches: not counted."""
+    import torch
+
+    from cst_captioning_tpu_torch.ops import decode_cell_kernel as k2
+
+    gen = torch.Generator().manual_seed(4321)
+    for dtype in ("float32", "bfloat16"):
+        for b in (1, 8, 40):
+            q, pm, mem, v = attention_inputs(b, gen)
+            x = torch.randn(b, E, generator=gen).cuda()
+            c = torch.randn(b, H, generator=gen).cuda()
+            h = torch.tanh(torch.randn(b, H, generator=gen)).cuda()
+            wg = (torch.randn(E + 2 * H, 4 * H, generator=gen)
+                  / (E + H) ** 0.5).cuda()
+            bias = (0.1 * torch.randn(4 * H, generator=gen)).cuda()
+            args = (x, c, h, q, pm, mem, v, wg, bias)
+            if dtype == "bfloat16":
+                args = to_bf16(x, c, h, q, pm, mem) + (v,) + to_bf16(wg,
+                                                                     bias)
+            first = k2.fused_decode_cell(*args)
+            second = k2.fused_decode_cell(*args)
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b_) for a, b_ in zip(first, second))
+            print(f"serving-rest K2 re-run {dtype} B={b}: bitwise equal "
+                  f"{same}")
+            if not same:
+                fail(f"phase 13: K2 {dtype} at B={b} gave other bits on "
+                     "a re-run")
+
+
+def rest_serve(model, vocab, feats_for, engine, lines):
+    """Serve ``lines`` through ``CaptionServer`` on ``engine``.  -> (the
+    replies, K2 launches, seconds)."""
+    import torch
+
+    from cst_captioning_tpu_torch.ops import launch_counts, \
+        reset_launch_counts
+    from cst_captioning_tpu_torch.serving.server import CaptionServer
+
+    out = io.StringIO()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    rc = CaptionServer(engine, vocab, feats_for, out=out).run_stdin(
+        lines=lines)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    if rc != 0:
+        fail(f"phase 13: server exited {rc}")
+    return ([json.loads(ln) for ln in out.getvalue().splitlines()],
+            launch_counts()["fused_decode_cell"], seconds)
+
+
+def check_streams(name: str, replies, want, beam: bool) -> int:
+    """Every request's stream lines concatenate to its final caption,
+    which equals ``want``; beam streams one terminal chunk.  -> the
+    number of stream lines."""
+    finals = {r["video_id"]: r for r in replies if r.get("final")}
+    if sorted(finals) != sorted(want):
+        fail(f"{name}: finals for {sorted(finals)}, not {sorted(want)}")
+    lines = 0
+    for vid, final in finals.items():
+        parts = [r for r in replies if r.get("video_id") == vid
+                 and r.get("stream") and r.get("final") is False]
+        lines += len(parts)
+        if [r["seq"] for r in parts] != list(range(len(parts))):
+            fail(f"{name}: {vid} stream seq {[r['seq'] for r in parts]}")
+        text = " ".join(r["text"] for r in parts)
+        if text != final["caption"] or final["caption"] != want[vid]:
+            fail(f"{name}: {vid} streamed {text!r}, final "
+                 f"{final['caption']!r}, expected {want[vid]!r}")
+        if beam and len(parts) != (1 if final["caption"] else 0):
+            fail(f"{name}: beam {vid} streamed {len(parts)} chunks")
+        if final["chunks"] != len(parts):
+            fail(f"{name}: {vid} final says {final['chunks']} chunks, "
+                 f"{len(parts)} came")
+    return lines
+
+
+class _AlwaysWedge:
+    """A plan that wedges every chunk: past any ladder."""
+
+    def fire(self, kind, index):
+        return kind == "serve_wedge"
+
+
+def rest_cli(*extra):
+    """The serve CLI at phase 4's width and model, as a process."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "cst_captioning_tpu_torch.serve",
+         "--serve_demo", "1", "--serve_demo_eos_bias", EOS_BIAS,
+         *WIDTH_ARGS, "--decode_kernel", "fused", "--beam_size", "1",
+         *extra],
+        stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, cwd=HERE,
+        env=dict(os.environ, PYTHONPATH=HERE))
+
+
+def cli_stats(err_lines) -> dict:
+    """The engine stats a serve process printed last on stderr."""
+    got = [ln for ln in err_lines if ln and ln.startswith("serve: {")]
+    return json.loads(got[-1][len("serve: "):]) if got else {}
+
+
+def watch_stderr(proc):
+    """Collect ``proc``'s stderr lines in a thread -> (lines, wait(text,
+    seconds) that returns the first line containing ``text``)."""
+    import threading
+
+    lines, cond = [], threading.Condition()
+
+    def read():
+        for line in proc.stderr:
+            with cond:
+                lines.append(line.rstrip())
+                cond.notify_all()
+        with cond:
+            lines.append(None)
+            cond.notify_all()
+
+    threading.Thread(target=read, name="chip-smoke-stderr",
+                     daemon=True).start()
+
+    def wait(text: str, seconds: float):
+        end = time.monotonic() + seconds
+        with cond:
+            while True:
+                for ln in lines:
+                    if ln is not None and text in ln:
+                        return ln
+                left = end - time.monotonic()
+                if left <= 0 or (lines and lines[-1] is None):
+                    return None
+                cond.wait(left)
+
+    return lines, wait
+
+
+def rest_phase(greedy_caps, beam_caps) -> int:
+    """Phase 13, serving the rest, at phase 4's width and model on K2:
+    (a) K2's re-run determinism; (b) 16 greedy streams; (c) 8 beam-5
+    streams; (d) the result cache; (e) a chaos plan, a forced rebuild and
+    the ladder's end; (f) a deadline under one chunk; (g) the CLI on a
+    socket with SIGTERM (75), two signals (143) and a plan past the
+    ladder (124).  -> K2 launches of the phase (its own processes' too;
+    not (a)'s)."""
+    import signal
+    import socket
+
+    import numpy as np
+    import torch
+
+    from cst_captioning_tpu_torch import serve
+    from cst_captioning_tpu_torch.ops import _cuda, launch_counts, \
+        reset_launch_counts
+    from cst_captioning_tpu_torch.resilience.faults import FaultPlan
+    from cst_captioning_tpu_torch.serving.buckets import parse_buckets
+    from cst_captioning_tpu_torch.serving.cache import ResultCache
+    from cst_captioning_tpu_torch.serving.engine import (
+        ServingEngine, ServingUnrecoverable)
+
+    t_phase = time.perf_counter()
+    k2_rerun_determinism()
+    opt = serve.parse_args(["--serve_demo", "1", "--serve_demo_eos_bias",
+                            EOS_BIAS] + WIDTH_ARGS
+                           + ["--decode_kernel", "fused"])
+    model, vocab, feat_shapes, feats_for = serve.build_backend(opt)
+
+    def engine(beam_size=1, **kw):
+        return ServingEngine(
+            model, feat_shapes, max_len=opt.max_length, beam_size=beam_size,
+            decode_chunk=opt.decode_chunk,
+            bucket_sizes=parse_buckets(opt.serve_buckets), queue_limit=0,
+            **kw)
+
+    def line(i, **kw):
+        return json.dumps({"id": i, "video_id": f"v{i}", **kw}) + "\n"
+
+    total = 0
+
+    # (b) 16 greedy streams.
+    eng = engine()
+    replies, k2n, seconds = rest_serve(
+        model, vocab, feats_for, eng, [line(i, op="stream")
+                                       for i in range(16)])
+    st = eng.stats()
+    check_launches("serving-rest stream", "K2", k2n, st["decode_steps"], 2)
+    total += k2n
+    n_lines = check_streams("serving-rest stream", replies, greedy_caps,
+                            beam=False)
+    print(f"serving-rest stream greedy: 16 requests in {seconds:.4f} s, "
+          f"{n_lines} stream lines, each stream equal to its final caption "
+          f"and to phase 4's; ttft p50={st['ttft_p50_ms']} ms "
+          f"p99={st['ttft_p99_ms']} ms; chunk gap p50="
+          f"{st['chunk_gap_p50_ms']} ms p99={st['chunk_gap_p99_ms']} ms; "
+          f"latency p50={st['latency_p50_ms']:.3f} ms "
+          f"p99={st['latency_p99_ms']:.3f} ms; K2 launches {k2n}")
+
+    # (c) beam 5, streamed: one terminal chunk each.
+    eng = engine(beam_size=5)
+    replies, k2n, seconds = rest_serve(
+        model, vocab, feats_for, eng, [line(i, op="stream")
+                                       for i in range(8)])
+    check_launches("serving-rest beam stream", "K2", k2n,
+                   eng.stats()["decode_steps"], 2)
+    total += k2n
+    n_lines = check_streams("serving-rest beam stream", replies, beam_caps,
+                            beam=True)
+    print(f"serving-rest stream beam 5: 8 requests in {seconds:.4f} s, "
+          f"{n_lines} terminal chunks, captions equal to phase 5's; "
+          f"K2 launches {k2n}")
+
+    # (d) the cache: 8 videos alone, then the same 8 and 24 repeats.
+    def decode_videos(eng, ids):
+        for i in ids:
+            eng.submit(i, feats_for(f"v{i % REST_CACHE_VIDEOS}"))
+        return {c.request_id: c for c in eng.run_until_idle()}
+
+    reset_launch_counts()
+    alone = decode_videos(engine(), range(REST_CACHE_VIDEOS))
+    torch.cuda.synchronize()
+    k2_alone = launch_counts()["fused_decode_cell"]
+    eng = engine(result_cache=ResultCache(64))
+    reset_launch_counts()
+    first = decode_videos(eng, range(REST_CACHE_VIDEOS))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hits = decode_videos(eng, range(REST_CACHE_VIDEOS,
+                                    REST_CACHE_REQUESTS))
+    hit_s = time.perf_counter() - t0
+    k2_cache = launch_counts()["fused_decode_cell"]
+    total += k2_alone + k2_cache
+    st = eng.stats()
+    same = all(np.array_equal(c.tokens,
+                              alone[c.request_id % REST_CACHE_VIDEOS].tokens)
+               for c in list(first.values()) + list(hits.values()))
+    print(f"serving-rest cache 64: {REST_CACHE_REQUESTS} requests of "
+          f"{REST_CACHE_VIDEOS} videos: hits {st['cache_hits']}, misses "
+          f"{st['cache_misses']}; K2 launches {k2_cache} (the "
+          f"{REST_CACHE_VIDEOS} alone: {k2_alone}); captions equal: {same};"
+          f" hit path {hit_s * 1e3 / len(hits):.4f} ms a request (host "
+          f"clock, {len(hits)} hits submitted and returned)")
+    if (st["cache_hits"] != REST_CACHE_REQUESTS - REST_CACHE_VIDEOS
+            or k2_cache != k2_alone or not same
+            or not all(c.cache_hit for c in hits.values())):
+        fail(f"phase 13: cache {st} K2 {k2_cache} vs {k2_alone}")
+
+    # Start the CLI processes now: their start-up overlaps (e) and (f).
+    lines_n = 8
+    p_sock = rest_cli("--serve_port", "-1", "--serve_cache", "0")
+    # 20000 one-step chunks (~10 s) leave the second signal a wide window
+    # to land in the drain; 1000 (~0.5 s) once closed before it landed.
+    p_abort = rest_cli("--serve_demo_eos_bias", "-50", "--max_length",
+                       "20000", "--decode_chunk", "1", "--serve_cache", "0")
+    p_wedge = rest_cli("--serve_retry_limit", "0", "--serve_rebuild_limit",
+                       "0", "--fault_plan", "serve_wedge@req=0")
+    procs = (p_sock, p_abort, p_wedge)
+    try:
+        # (e) chaos plan: captions bit-identical to a clean run.
+        clean = decode_videos(engine(recover=True), range(16))
+        runs = {}
+        for name, plan, kw in (
+                ("chaos", "serve_wedge@req=1,serve_garble@req=3,"
+                          "admit_err@req=5", {}),
+                ("rebuild", "serve_garble@req=2", {"retry_limit": 0})):
+            eng = engine(recover=True, fault_plan=FaultPlan.parse(plan),
+                         **kw)
+            events0 = _cuda.library_events()
+            reset_launch_counts()
+            got = decode_videos(eng, range(16))
+            torch.cuda.synchronize()
+            total += launch_counts()["fused_decode_cell"]
+            st = eng.stats()
+            runs[name] = st
+            same = all(np.array_equal(got[i].tokens, clean[i].tokens)
+                       for i in range(16))
+            loads = _cuda.library_events() - events0
+            print(f"serving-rest {name} ({plan}): 16 captions bit-identical "
+                  f"to the clean run: {same}; retries "
+                  f"{st['chunk_retries']}, rebuilds {st['rebuilds']}, "
+                  f"wedges {st['wedge_detected']}, garbles "
+                  f"{st['garble_detected']}, admit errors "
+                  f"{st['admit_errors']}, replay divergence "
+                  f"{st['replay_divergence']}, library events {loads}")
+            if not same or loads or st["rebuild_recompiles"] \
+                    or st["replay_divergence"]:
+                fail(f"phase 13 {name}: {st}")
+        if (runs["chaos"]["chunk_retries"], runs["chaos"]["admit_errors"],
+                runs["rebuild"]["rebuilds"]) != (2, 1, 1):
+            fail(f"phase 13: the plans did not fire as planned: {runs}")
+        eng = engine(recover=True, fault_plan=_AlwaysWedge(),
+                     retry_limit=1, rebuild_limit=1)
+        eng.submit(0, feats_for("v0"))
+        try:
+            eng.run_until_idle()
+            fail("phase 13: a plan past the ladder did not raise")
+        except ServingUnrecoverable as e:
+            print(f"serving-rest ladder: ServingUnrecoverable after "
+                  f"{eng.stats()['rebuilds']} rebuild(s): {e}")
+
+        # (f) a deadline under one chunk; the other requests unaffected.
+        eng = engine()
+        replies, k2n, _ = rest_serve(
+            model, vocab, feats_for, eng,
+            [line(i, **({"deadline_ms": 0.5} if i == 5 else {}))
+             for i in range(16)])
+        total += k2n
+        late = [r for r in replies if r["id"] == 5]
+        rest = {r["video_id"]: r["caption"] for r in replies
+                if r["id"] != 5 and "caption" in r}
+        print(f"serving-rest deadline 0.5 ms: {late}; "
+              f"{sum(rest[v] == greedy_caps[v] for v in rest)}/15 others "
+              "equal to phase 4's")
+        if (len(late) != 1 or late[0].get("error") != "expired"
+                or len(rest) != 15
+                or any(rest[v] != greedy_caps[v] for v in rest)):
+            fail(f"phase 13: deadline {late}, others {len(rest)}")
+
+        # (g) the CLI on an ephemeral port: 2 connections x 8 requests,
+        # a health op, then SIGTERM under load.
+        t_cli = time.perf_counter()
+        sock_err, sock_wait = watch_stderr(p_sock)
+        ready = sock_wait("listening on 127.0.0.1:", 120)
+        if ready is None:
+            fail("phase 13: the socket CLI never listened:\n"
+                 + "\n".join(str(x) for x in sock_err[-20:]))
+        port = int(ready.rsplit(":", 1)[1])
+        conns = [socket.create_connection(("127.0.0.1", port), timeout=120)
+                 for _ in range(2)]
+        files = [c.makefile("r") for c in conns]
+        for k, c in enumerate(conns):
+            c.sendall("".join(line(i) for i in range(k * lines_n,
+                                                     (k + 1) * lines_n))
+                      .encode())
+        got = {}
+        for f in files:
+            for _ in range(lines_n):
+                r = json.loads(f.readline())
+                got[r["video_id"]] = r.get("caption")
+        conns[0].sendall(b'{"op": "health"}\n')
+        health = json.loads(files[0].readline())
+        # Under load: 16 more requests, each connection's followed by a
+        # health op, whose reply says they were submitted; then the
+        # signal.
+        tail = []
+        for k, c in enumerate(conns):
+            c.sendall(("".join(line(100 + i, video_id=f"v{i}")
+                               for i in range(k * lines_n,
+                                              (k + 1) * lines_n))
+                       + '{"op": "health"}\n').encode())
+        for f in files:
+            while True:
+                r = json.loads(f.readline())
+                if r.get("op") == "health":
+                    break
+                tail.append(r)
+        p_sock.send_signal(signal.SIGTERM)
+        tail += [json.loads(ln) for f in files for ln in f if ln.strip()]
+        rc_sock = p_sock.wait(timeout=120)
+        for c in conns:
+            c.close()
+        same = sum(got.get(v) == greedy_caps[v] for v in greedy_caps)
+        answered = sorted(r["id"] for r in tail)
+        print(f"serving-rest CLI socket: {same}/16 captions equal to phase "
+              f"4's over 2 connections; health {health.get('status')}; "
+              f"SIGTERM with 16 more sent: exit {rc_sock}, "
+              f"{sum('caption' in r for r in tail)} completed and "
+              f"{sum(r.get('error') == 'rejected_draining' for r in tail)} "
+              f"rejected of {len(tail)}")
+        if (same != 16 or health.get("op") != "health" or rc_sock != 75
+                or answered != list(range(100, 116))
+                or not all("caption" in r
+                           or r.get("error") == "rejected_draining"
+                           for r in tail)):
+            fail(f"phase 13: socket CLI rc {rc_sock}, health {health}, "
+                 f"answers {answered}\n" + "\n".join(
+                     str(x) for x in sock_err[-20:]))
+        total += cli_stats(sock_err).get("kernel_launches", {}).get(
+            "fused_decode_cell", 0)
+
+        # Two signals: the second aborts the drain, exit 143.
+        abort_err, abort_wait = watch_stderr(p_abort)
+        if abort_wait("serve: ready", 120) is None:
+            fail("phase 13: the drain-abort CLI never started")
+        p_abort.stdin.write("".join(line(i) for i in range(8))
+                            + '{"op": "health"}\n')
+        p_abort.stdin.flush()
+        if json.loads(p_abort.stdout.readline()).get("op") != "health":
+            fail("phase 13: the drain-abort CLI's first reply is not health")
+        p_abort.send_signal(signal.SIGTERM)
+        if abort_wait("serve: draining", 60) is None:
+            fail("phase 13: the drain never started")
+        p_abort.send_signal(signal.SIGSTOP)
+        p_abort.send_signal(signal.SIGTERM)
+        p_abort.send_signal(signal.SIGCONT)
+        rc_abort = p_abort.wait(timeout=120)
+        out = [json.loads(ln) for ln in p_abort.stdout.read().splitlines()
+               if ln.strip()]
+        aborted = abort_wait("drain aborted", 5)
+        print(f"serving-rest CLI two signals: exit {rc_abort}; {aborted}; "
+              f"{len(out)} requests answered rejected_draining")
+        if (rc_abort != 143 or aborted is None
+                or sorted(r["id"] for r in out) != list(range(8))
+                or any(r.get("error") != "rejected_draining" for r in out)):
+            fail(f"phase 13: two signals gave exit {rc_abort}: {out}")
+        total += cli_stats(abort_err).get("kernel_launches", {}).get(
+            "fused_decode_cell", 0)
+
+        # A plan past the ladder: exit 124.
+        wedge_out, wedge_err = p_wedge.communicate(
+            "".join(line(i) for i in range(2)), timeout=120)
+        stats = cli_stats(wedge_err.splitlines())
+        print(f"serving-rest CLI past the ladder: exit {p_wedge.returncode};"
+              f" wedges {stats.get('wedge_detected')}; " + "; ".join(
+                  ln for ln in wedge_err.splitlines()
+                  if "UNRECOVERABLE" in ln))
+        if p_wedge.returncode != 124 or "UNRECOVERABLE" not in wedge_err:
+            fail(f"phase 13: past the ladder exit {p_wedge.returncode}")
+        total += stats.get("kernel_launches", {}).get("fused_decode_cell", 0)
+        print(f"serving-rest CLI processes: "
+              f"{time.perf_counter() - t_cli:.1f} s after (f)")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    seconds = time.perf_counter() - t_phase
+    print(f"serving-rest phase: {seconds:.1f} s (budget {REST_BUDGET_S:.0f} "
+          f"s); K2 launches {total}")
+    if total == 0:
+        fail("phase 13: K2 never launched")
+    return total
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "cst_captioning_tpu_torch")):
         print("chip_smoke: no cst_captioning_tpu_torch package beside "
@@ -2263,8 +2725,13 @@ def main() -> int:
     f_launch = files_phase(splits, e_scores, e_preds)
     del splits
 
+    # Phase 13: serving, the rest (streams, the cache, the ladder,
+    # deadlines, the socket CLI and its exits), on K2.
+    rest_launch = rest_phase(greedy_caps, beam_caps)
+
     # The kernels line: one entry per kernel and storage dtype.  Launches:
-    # float32 from phases 4-7, 9, 10 and 12, bfloat16 from phases 8 and 11;
+    # float32 from phases 4-7, 9, 10, 12 and 13, bfloat16 from phases 8
+    # and 11;
     # times at B=8, the
     # greedy serving batch (8-slot bucket), every measured batch under
     # ``by_batch``.
@@ -2277,7 +2744,7 @@ def main() -> int:
         + beam_launch["fused_decode_cell"]
         + t_launch["fused_decode_cell"] + e_launch
         + resume_launch["fused_decode_cell"]
-        + f_launch["fused_decode_cell"],
+        + f_launch["fused_decode_cell"] + rest_launch,
         ("K1", "bfloat16"): s_launch["fused_additive_attention/bfloat16"]
         + bt_launch["fused_additive_attention/bfloat16"]
         + bench_launch["fused_additive_attention"],

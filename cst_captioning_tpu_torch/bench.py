@@ -80,13 +80,10 @@ _SERVING_REST = "ROADMAP Queue 1 item 5 (serving, the rest)"
 #: ``{dest: (the value that leaves them off, where they wait)}``.  Any
 #: other value is refused.
 REFUSED = {
-    "serve_cache": (0, _SERVING_REST),
-    "serve_stream": (0, _SERVING_REST),
     "replicas": (1, _SERVING_REST),
     "serve_kill_replica": (-1, _SERVING_REST),
     "serve_trace": (0, _SERVING_REST),
     "serve_blackbox": (None, _SERVING_REST),
-    "serve_cache_compare": (0, _SERVING_REST),
     "data_shards": (0, "ROADMAP Queue 1 item 7 (DP and CP)"),
     "data_shard_id": (0, "ROADMAP Queue 1 item 7 (DP and CP)"),
     "scan_unroll": (None, "ROADMAP Queue 1 item 8 (tuning)"),
@@ -330,19 +327,38 @@ def bench_cst(args, device: torch.device) -> dict:
 def bench_serving(args, device: torch.device) -> dict:
     """Open-loop serving probe (``serving/bench.py``) at the bench's
     shapes, the EOS logit raised by ``--probe_eos_bias`` as in the
-    rollout probe, so the untrained model ends its captions."""
+    rollout probe, so the untrained model ends its captions.  With
+    ``--serve_cache_compare 1`` and a cache: an unmeasured rehearsal,
+    then the cache-off twin and the cached probe at the same seed (the
+    same arrivals and mix), and the record carries ``cache_speedup``."""
     model, _, _, _ = build(args, device)
     with torch.no_grad():
         model.logit.bias[0] += args.probe_eos_bias
     model.eval()
-    out = serving_probe(
-        model, list(DEFAULT_FEAT_SHAPES), num_requests=args.serve_requests,
-        rate_hz=args.serve_rate, max_len=args.seq_len,
-        beam_size=args.serve_beam, decode_chunk=args.decode_chunk,
-        bucket_sizes=parse_buckets(args.serve_buckets), queue_limit=0,
-        seed=777, unique_videos=args.serve_unique,
-        zipf_alpha=args.serve_zipf, arrival_shape=args.arrival_shape,
-        arrival_trace=args.arrival_trace)
+    kw = dict(num_requests=args.serve_requests, rate_hz=args.serve_rate,
+              max_len=args.seq_len, beam_size=args.serve_beam,
+              decode_chunk=args.decode_chunk,
+              bucket_sizes=parse_buckets(args.serve_buckets), queue_limit=0,
+              seed=777, stream=bool(args.serve_stream),
+              cache_size=args.serve_cache, unique_videos=args.serve_unique,
+              zipf_alpha=args.serve_zipf, arrival_shape=args.arrival_shape,
+              arrival_trace=args.arrival_trace)
+    shapes = list(DEFAULT_FEAT_SHAPES)
+    if args.serve_cache_compare and args.serve_cache:
+        # The process's first probe pays one-time costs (allocator,
+        # handles) that would land on whichever measured run goes first.
+        serving_probe(model, shapes, **{
+            **kw, "cache_size": 0, "num_requests": 8,
+            "rate_hz": min(args.serve_rate, 100.0)})
+        twin = serving_probe(model, shapes, **{**kw, "cache_size": 0})
+        out = serving_probe(model, shapes, **kw)
+        out["cache_off_captions_per_sec"] = twin["captions_per_sec"]
+        out["cache_off_latency_p50_ms"] = twin["latency_p50_ms"]
+        if twin["captions_per_sec"] > 0:
+            out["cache_speedup"] = round(
+                out["captions_per_sec"] / twin["captions_per_sec"], 3)
+    else:
+        out = serving_probe(model, shapes, **kw)
     out["eos_bias"] = args.probe_eos_bias
     return out
 
@@ -389,7 +405,8 @@ def resolved_config(args) -> dict:
         config.update({k: getattr(args, k) for k in
                        ("serve_requests", "serve_rate", "serve_buckets",
                         "serve_beam", "serve_zipf", "serve_unique",
-                        "arrival_shape")})
+                        "arrival_shape", "serve_stream", "serve_cache",
+                        "serve_cache_compare")})
     if args.stage == "data":
         config.update({k: getattr(args, k) for k in
                        ("loader_workers", "data_read_ms",
@@ -453,6 +470,15 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     g.add_argument("--serve_unique", type=positive_int, default=None,
                    help="distinct videos in the mix (default: one per "
                         "request)")
+    g.add_argument("--serve_stream", type=int, default=0,
+                   help="1 = every request streams; the record carries "
+                        "TTFT and chunk-gap percentiles")
+    g.add_argument("--serve_cache", type=int, default=0,
+                   help="exact-result cache entries (0: off); repeats in "
+                        "the mix (--serve_zipf, --serve_unique) hit it")
+    g.add_argument("--serve_cache_compare", type=int, default=0,
+                   help="1 = also run the cache-off twin at the same seed "
+                        "and report cache_speedup (needs --serve_cache)")
     g.add_argument("--arrival_shape", default="poisson",
                    choices=ARRIVAL_SHAPES)
     g.add_argument("--arrival_trace", default=None,

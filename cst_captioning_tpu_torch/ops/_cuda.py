@@ -52,6 +52,7 @@ SIGNATURES = {
 
 _lock = threading.Lock()
 _loaded: Dict[Tuple[str, str], Callable[..., int]] = {}
+_compiles = 0       # libraries this process compiled
 
 
 def _nvcc() -> str:
@@ -78,6 +79,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
     """Compile the named kernel libraries (default: all) that are not
     built yet, in parallel.  Returns ``{name: {"seconds", "ptxas",
     "cached"}}``; raises with nvcc's output if any compile fails."""
+    global _compiles
     names = list(SIGNATURES if names is None else names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     out: Dict[str, dict] = {}
@@ -104,6 +106,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
                           f"{log}")
             continue
         os.replace(tmp, dest)
+        _compiles += 1      # not under _lock: load() holds it to build
         ptxas = "\n".join(ln for ln in log.splitlines()
                           if "registers" in ln or "spill" in ln)
         out[name] = {"seconds": seconds, "ptxas": ptxas, "cached": False}
@@ -128,6 +131,14 @@ def load(name: str, function: Optional[str] = None):
             fn.restype = ctypes.c_int
             _loaded[(name, function)] = fn
     return fn
+
+
+def library_events() -> int:
+    """Libraries this process has compiled plus the (library, function)
+    pairs it has loaded: a path that must build and load nothing (the
+    serving engine's rebuild) compares it before and after."""
+    with _lock:
+        return _compiles + len(_loaded)
 
 
 def loaded_libraries() -> Tuple[Tuple[str, str], ...]:

@@ -1,1 +1,1 @@
-"""Fault handling of the training path."""
+"""Fault handling of the training and serving paths."""

@@ -37,8 +37,22 @@ kind             keys on  effect at the injection site
                           worker retries it with backoff
 ===============  =======  ===================================================
 
-The serving (``@req``) and process (``@replica``) kinds parse as in the
-reference; the port has no site for them yet.
+The serving kinds the port's engine hosts (``serving/engine.py``):
+
+================  =======  ==================================================
+kind              keys on  effect at the injection site
+================  =======  ==================================================
+``serve_wedge``   req      raise ``InjectedFault`` from the dispatch of a
+                           chunk while request N is resident
+``serve_garble``  req      zero request N's row of a chunk's fetch (the
+                           garble signature, ``resilience/garble.py``)
+``admit_err``     req      raise ``InjectedFault`` from request N's admission
+``serve_cache``   req      raise ``InjectedFault`` from request N's
+                           result-cache lookup
+================  =======  ==================================================
+
+The process (``@replica``) kinds parse as in the reference; the port has
+no site for them yet.
 
 Firing is single-shot per (kind, index): a plan replayed after a rollback
 or a resume does not fire an index twice.  ``bind_state(path)`` persists
@@ -49,6 +63,7 @@ that resumes it.
 
 from __future__ import annotations
 
+import argparse
 import json
 import logging
 import os
@@ -231,3 +246,13 @@ class FaultPlan:
 
     def __str__(self) -> str:
         return ",".join(str(s) for s in self.specs)
+
+
+def fault_plan_arg(text: str) -> str:
+    """argparse type of ``--fault_plan``: a malformed plan is a usage
+    error (exit 2) naming the bad spec, not a start-up traceback."""
+    try:
+        FaultPlan.parse(text)
+    except ValueError as e:
+        raise argparse.ArgumentTypeError(str(e)) from None
+    return text

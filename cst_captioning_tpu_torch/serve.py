@@ -27,10 +27,27 @@ Three backends.  The first two serve a seeded feature table (ids ``v0``
   checkpoint's, so the captions equal the eval CLI's predictions at the
   same beam and decode settings.
 
-Protocol and shutdown: ``serving/server.py`` (stdin EOF exits 0, SIGTERM
-drains and exits 75).  Engine stats go to stderr as one JSON line.
-Runs on the CUDA device unless ``--device cpu`` is given; without a GPU
-it exits with an error instead of running on the CPU.
+Protocol and shutdown: ``serving/server.py``.  Requests come on stdin,
+or with ``--serve_port`` on a localhost socket (``-1``: an ephemeral
+port, announced on stderr as ``serve: listening on 127.0.0.1:<port>``).
+Stdin EOF exits 0; SIGTERM drains and exits 75, a second signal during
+the drain exits 143.
+
+Faults and latency (``serving/engine.py``): ``--serve_deadline_ms`` (a
+default deadline; a request's ``deadline_ms`` overrides it),
+``--serve_recover`` with ``--serve_retry_limit`` and
+``--serve_rebuild_limit`` (the ladder; when it is exhausted the process
+exits 124), ``--serve_step_budget_ms`` (slow chunks mark health
+degraded), ``--serve_cache`` (the exact-result cache's capacity; 0 turns
+it off) and ``--fault_plan`` (``serve_wedge|serve_garble|admit_err|
+serve_cache@req=N``, drills only).  ``--serve_heartbeat_file`` writes the
+health payload once a second; ``--wedge_timeout`` exits 124 when the
+scheduler loop stops beating; ``--serve_telemetry_file`` gets the
+registry's counters at exit.
+
+Engine stats go to stderr as one JSON line.  Runs on the CUDA device
+unless ``--device cpu`` is given; without a GPU it exits with an error
+instead of running on the CPU.
 """
 
 from __future__ import annotations
@@ -49,10 +66,24 @@ from .data.shapes import parse_feat_shapes
 from .data.vocab import Vocab
 from .eval import load_checkpoint_model
 from .models import CaptionModel
+from .resilience.exitcodes import EXIT_WEDGE, describe
+from .resilience.faults import FaultPlan, fault_plan_arg
+from .resilience.preemption import PreemptionHandler
 from .serving.buckets import parse_buckets
-from .serving.engine import ServingEngine
-from .serving.server import CaptionServer, PreemptionHandler
+from .serving.cache import ResultCache
+from .serving.engine import ServingEngine, ServingUnrecoverable
+from .serving.server import CaptionServer
+from .telemetry.registry import MetricsRegistry
+from .utils.watchdog import ProgressWatchdog
 from .weights import init_random_, load_params_npz, model_from_flax
+
+
+def nonneg_int(text: str) -> int:
+    """argparse type of a count that may be 0."""
+    value = int(text)
+    if value < 0:
+        raise argparse.ArgumentTypeError(f"must be >= 0, got {value}")
+    return value
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -95,6 +126,42 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--decode_chunk", type=int, default=8)
     p.add_argument("--serve_buckets", default="1,4,8")
     p.add_argument("--serve_queue_limit", type=int, default=64)
+    p.add_argument("--serve_port", type=int, default=0,
+                   help="0 (default): JSONL on stdin/stdout; N > 0: listen "
+                        "on 127.0.0.1:N; -1: an ephemeral port, announced "
+                        "on stderr")
+    g = p.add_argument_group("faults and latency")
+    g.add_argument("--serve_deadline_ms", type=nonneg_int, default=0,
+                   help="default request deadline (0: none); a request's "
+                        "deadline_ms overrides it")
+    g.add_argument("--serve_recover", type=int, default=1,
+                   help="1 (default): a failed or garbled chunk re-runs "
+                        "from its pre-chunk state, then the engine "
+                        "rebuilds, then the process exits 124")
+    g.add_argument("--serve_retry_limit", type=nonneg_int, default=2,
+                   help="chunk re-runs (and admission retries) before a "
+                        "rebuild")
+    g.add_argument("--serve_rebuild_limit", type=nonneg_int, default=2,
+                   help="failed rebuilds before the process exits 124")
+    g.add_argument("--serve_step_budget_ms", type=float, default=0.0,
+                   help="a slower chunk marks health degraded and counts "
+                        "serve_slow_chunks (0: off)")
+    g.add_argument("--serve_cache", type=nonneg_int, default=256,
+                   help="exact-result cache entries (0: off)")
+    g.add_argument("--serve_heartbeat_file", default=None,
+                   help="write heartbeat.json (the health payload and the "
+                        "counters) here once a second")
+    g.add_argument("--wedge_timeout", type=float, default=0.0,
+                   help="seconds without a scheduler-loop beat before the "
+                        "process exits 124 (0: off)")
+    g.add_argument("--serve_telemetry_file", default=None,
+                   help="write the registry's telemetry.json here at exit")
+    g.add_argument("--fault_plan",
+                   default=os.environ.get("CST_FAULT_PLAN") or None,
+                   type=fault_plan_arg,
+                   help="drills only: e.g. 'serve_wedge@req=1,"
+                        "serve_garble@req=3,admit_err@req=4,"
+                        "serve_cache@req=5'; default: $CST_FAULT_PLAN")
     p.add_argument("--device", default=None,
                    help="torch device; default cuda (raises without a GPU)")
     raw = sys.argv[1:] if argv is None else list(argv)
@@ -164,31 +231,97 @@ def build_backend(opt):
     return model, vocab, feat_shapes, feats_for
 
 
+_warned_serve_deadline = False
+
+
+def warn_serve_deadline(opt) -> None:
+    """Once per process: a default deadline below the per-chunk budget
+    can never be met (one chunk over the slot batch is the smallest unit
+    of service).  The server still runs, with the deadline as given."""
+    global _warned_serve_deadline
+    if _warned_serve_deadline:
+        return
+    deadline = float(opt.serve_deadline_ms or 0)
+    budget = float(opt.serve_step_budget_ms or 0)
+    if 0 < deadline < budget:
+        _warned_serve_deadline = True
+        try:
+            bucket = (f"the largest serve bucket "
+                      f"({parse_buckets(opt.serve_buckets)[-1]} slots)")
+        except ValueError:
+            bucket = "the largest serve bucket"
+        print(f"warning: --serve_deadline_ms {deadline:g} is below one "
+              f"decode-chunk budget (--serve_step_budget_ms {budget:g}) "
+              f"for {bucket}: such a deadline can never be met; every "
+              "request will expire or be shed before completing",
+              file=sys.stderr)
+
+
 def main(argv=None) -> int:
     opt = parse_args(argv)
+    warn_serve_deadline(opt)
+    handler = PreemptionHandler().install()
+    registry = MetricsRegistry()
+    plan = FaultPlan.parse(opt.fault_plan)
+    if plan is not None:
+        plan.bind_metrics(registry)
     model, vocab, feat_shapes, feats_for = build_backend(opt)
     engine = ServingEngine(
         model, feat_shapes, max_len=opt.max_length,
         beam_size=opt.beam_size, length_norm=opt.length_norm,
         decode_chunk=opt.decode_chunk,
         bucket_sizes=parse_buckets(opt.serve_buckets),
-        queue_limit=opt.serve_queue_limit)
-    server = CaptionServer(engine, vocab, feats_for,
-                           handler=PreemptionHandler().install())
+        queue_limit=opt.serve_queue_limit,
+        deadline_ms=opt.serve_deadline_ms, fault_plan=plan,
+        recover=bool(opt.serve_recover),
+        retry_limit=opt.serve_retry_limit,
+        rebuild_limit=opt.serve_rebuild_limit,
+        step_budget_ms=opt.serve_step_budget_ms,
+        result_cache=ResultCache(opt.serve_cache) if opt.serve_cache
+        else None,
+        registry=registry)
+    server = CaptionServer(engine, vocab, feats_for, handler=handler,
+                           registry=registry)
+    watchdog = None
+    if opt.serve_heartbeat_file or opt.wedge_timeout > 0:
+        watchdog = ProgressWatchdog(
+            opt.wedge_timeout, describe=lambda: "serving scheduler loop",
+            heartbeat_path=opt.serve_heartbeat_file,
+            payload=lambda: {"serving": server.published_health(),
+                             **registry.heartbeat_payload()},
+            heartbeat_interval_s=1.0).start()
+        server.watchdog = watchdog
     print(f"serve: ready on {model.device} (decode_kernel="
           f"{opt.decode_kernel}, compute {model.dtype}, beam "
-          f"{engine.beam_size}, buckets "
-          f"{engine.buckets})", file=sys.stderr, flush=True)
+          f"{engine.beam_size}, buckets {engine.buckets}, cache "
+          f"{opt.serve_cache}, recover {int(engine.recover)})",
+          file=sys.stderr, flush=True)
+    if plan is not None:
+        print(f"serve: CHAOS: fault plan armed: {plan}", file=sys.stderr,
+              flush=True)
     try:
-        return server.run_stdin()
+        try:
+            if opt.serve_port:
+                rc = server.run_socket(max(opt.serve_port, 0))
+            else:
+                rc = server.run_stdin()
+        except ServingUnrecoverable as e:
+            print(f"serve: UNRECOVERABLE: {e}; exiting {EXIT_WEDGE} "
+                  f"({describe(EXIT_WEDGE)})", file=sys.stderr)
+            rc = EXIT_WEDGE
     finally:
+        if watchdog is not None:
+            watchdog.stop()
         print("serve: " + json.dumps(engine.stats()), file=sys.stderr)
+        if opt.serve_telemetry_file:
+            registry.write_snapshot(opt.serve_telemetry_file)
+    return rc
 
 
 if __name__ == "__main__":
     code = main()
     sys.stdout.flush()
     sys.stderr.flush()
-    # The stdin reader thread may still be blocked in a read; leave
-    # without the interpreter's teardown, which can abort under it.
+    # A reader thread may still be blocked in a read; leave without the
+    # interpreter's teardown, which can abort under it.
     os._exit(code)

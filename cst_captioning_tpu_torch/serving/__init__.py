@@ -1,2 +1,3 @@
 """Serving layer of the port: the continuous-batching engine, its bucket
-ladder and the JSONL front end."""
+ladder, the exact-result cache and the JSONL front end (stdin or a
+localhost socket)."""

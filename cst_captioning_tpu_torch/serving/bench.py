@@ -14,7 +14,11 @@ probe raises if one is.
 
 The request mix (``zipfian_mix``) and the arrival shapes
 (``make_arrivals``: Poisson, diurnal, burst, trace replay) are the
-reference's, draw for draw.  The reference's streaming, result cache,
+reference's, draw for draw.  ``stream`` streams every request and checks
+that each one's chunks concatenate to its caption; ``cache_size`` arms
+the exact-result cache and checks every hit against the first decoded
+caption of its video.  The warm-up engines run without the cache, so
+the probe's first request of each video is a miss.  The reference's
 fleet and lifecycle tracing are not ported.
 """
 
@@ -28,7 +32,8 @@ import numpy as np
 
 from ..ops import _cuda
 from .buckets import DEFAULT_BUCKETS
-from .engine import ServingEngine
+from .cache import ResultCache
+from .engine import ServingEngine, _trim_eos
 
 
 def poisson_arrivals(num_requests: int, rate_hz: float,
@@ -162,6 +167,7 @@ def serving_probe(model, feat_shapes: Sequence, *, num_requests: int = 24,
                   decode_chunk: int = 8,
                   bucket_sizes: Sequence[int] = DEFAULT_BUCKETS,
                   queue_limit: int = 0, seed: int = 0,
+                  stream: bool = False, cache_size: int = 0,
                   unique_videos: Optional[int] = None,
                   zipf_alpha: float = 0.0, arrival_shape: str = "poisson",
                   arrival_trace: Optional[str] = None,
@@ -170,7 +176,9 @@ def serving_probe(model, feat_shapes: Sequence, *, num_requests: int = 24,
     """Drive one engine through a seeded open-loop load; -> metrics.
 
     Raises ``RuntimeError`` if a kernel library is built or loaded while
-    the clock runs (the warm-up must have paid for every one).
+    the clock runs (the warm-up must have paid for every one), if a
+    streamed request's chunks do not concatenate to its caption, or if a
+    cache hit differs from its video's decoded caption.
     """
     n = int(num_requests)
     uniq = n if unique_videos is None else max(1, min(int(unique_videos), n))
@@ -181,33 +189,45 @@ def serving_probe(model, feat_shapes: Sequence, *, num_requests: int = 24,
               for s in feat_shapes] for _ in range(uniq)]
     video_of = zipfian_mix(n, uniq, zipf_alpha, seed + 2)
 
-    def make_engine() -> ServingEngine:
+    def make_engine(cache=None) -> ServingEngine:
         return ServingEngine(
             model, feat_shapes, max_len=max_len, beam_size=beam_size,
             length_norm=length_norm, decode_chunk=decode_chunk,
-            bucket_sizes=bucket_sizes, queue_limit=queue_limit, clock=clock)
+            bucket_sizes=bucket_sizes, queue_limit=queue_limit,
+            result_cache=cache, clock=clock)
 
     t_warm = clock()
     warmed = warm_buckets(make_engine, feats)
     warm_s = clock() - t_warm
-    engine = make_engine()
+    engine = make_engine(ResultCache(int(cache_size)) if cache_size
+                         else None)
     libraries = _cuda.loaded_libraries()
 
     t0 = clock()
     submitted = 0
     latencies: Dict[Any, float] = {}
+    tokens: Dict[Any, np.ndarray] = {}
+    hit: Dict[Any, bool] = {}
+    chunks: Dict[Any, list] = {}
     shed = 0
-    dropped = 0     # the port's engine drops nothing (no deadlines yet)
+    dropped = 0
     while len(latencies) + shed + dropped < n:
         now = clock() - t0
         while submitted < n and arrivals[submitted] <= now:
             if not engine.submit(submitted,
-                                 feats[int(video_of[submitted])]):
+                                 feats[int(video_of[submitted])],
+                                 stream=stream):
                 shed += 1
             submitted += 1
         for comp in engine.step():
             latencies[comp.request_id] = ((comp.done_at - t0)
                                           - arrivals[comp.request_id])
+            tokens[comp.request_id] = np.asarray(comp.tokens)
+            hit[comp.request_id] = bool(comp.cache_hit)
+        # A drop record is an answer (none on a probe without deadlines).
+        dropped += len(engine.pop_dropped())
+        for ch in engine.pop_stream_chunks():
+            chunks.setdefault(ch.request_id, []).append(ch)
         if engine.idle and submitted < n:
             time.sleep(min(max(arrivals[submitted] - (clock() - t0), 0.0),
                            0.01))
@@ -220,6 +240,58 @@ def serving_probe(model, feat_shapes: Sequence, *, num_requests: int = 24,
             "built or loaded while the serving clock ran; the warm-up must "
             "load every one")
     stats = engine.stats()
+
+    stream_out: Dict[str, Any] = {"enabled": bool(stream)}
+    if stream:
+        bad = []
+        for rid, row in tokens.items():
+            mine = sorted(chunks.get(rid, []), key=lambda c: c.seq)
+            got = (np.concatenate([c.tokens for c in mine]) if mine
+                   else np.zeros((0,), np.int32))
+            if not np.array_equal(got, _trim_eos(row)):
+                bad.append(rid)
+        if bad:
+            raise RuntimeError(
+                f"streamed chunks do not concatenate to the caption of "
+                f"request(s) {bad[:5]}")
+        stream_out.update({
+            "chunks": stats["stream_chunks"],
+            "ttft_p50_ms": stats["ttft_p50_ms"],
+            "ttft_p99_ms": stats["ttft_p99_ms"],
+            "chunk_gap_p50_ms": stats["chunk_gap_p50_ms"],
+            "chunk_gap_p99_ms": stats["chunk_gap_p99_ms"],
+            "prefix_ok": True,
+        })
+
+    cache_out: Dict[str, Any] = {"enabled": bool(cache_size)}
+    if cache_size:
+        # Every hit against its twin: the first decoded caption of the
+        # same video.
+        twin: Dict[int, np.ndarray] = {}
+        for rid in sorted(tokens):
+            if not hit[rid]:
+                twin.setdefault(int(video_of[rid]), tokens[rid])
+        mismatches = sum(
+            1 for rid in tokens
+            if hit[rid] and not np.array_equal(
+                tokens[rid], twin.get(int(video_of[rid]))))
+        if mismatches:
+            raise RuntimeError(f"{mismatches} cache hit(s) differ from "
+                               "their video's decoded caption")
+        hm = stats["cache_hits"] + stats["cache_misses"]
+        cache_out.update({
+            "hits": stats["cache_hits"],
+            "misses": stats["cache_misses"],
+            "evictions": stats["cache_evictions"],
+            "bypass": stats["cache_bypass"],
+            "errors": stats["cache_errors"],
+            "entries": stats["cache_entries"],
+            "capacity": stats["cache_capacity"],
+            "hit_rate": round(stats["cache_hits"] / hm, 4) if hm else None,
+            "parity_ok": True,
+            "parity_mismatches": 0,
+        })
+
     lat_ms = np.asarray(sorted(latencies.values())) * 1e3
     pct = (lambda q: round(float(np.percentile(lat_ms, q)), 3)  # noqa: E731
            if lat_ms.size else None)
@@ -251,4 +323,8 @@ def serving_probe(model, feat_shapes: Sequence, *, num_requests: int = 24,
         "beam_size": engine.beam_size,
         "decode_chunk": engine.chunk,
         "max_len": int(max_len),
+        "stream": stream_out,
+        "cache": cache_out,
+        # All 0 on a healthy probe without a fault plan.
+        **engine.recovery_counters(),
     }

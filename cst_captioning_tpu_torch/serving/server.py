@@ -1,132 +1,351 @@
-"""JSONL caption server over one ``ServingEngine`` (counterpart of the
-stdin front end of the reference's ``serving/server.py``).
+"""JSONL caption server over one ``ServingEngine``: stdin/stdout or a
+localhost socket (counterpart of the reference's ``serving/server.py``).
 
-Protocol: one JSON object per line on stdin, one per line on stdout::
+Protocol, one JSON object per line either way::
 
-    {"id": 1, "video_id": "v3"}
-    -> {"id": 1, "video_id": "v3", "caption": "...", "latency_ms": 12.3}
+    request:  {"id": <any>, "video_id": "<key>"}
+              optional: "op": "caption" (default) | "stream" | "health"
+                        | "stats" | "ping" | "dump",
+                        "deadline_ms": <this request's deadline>,
+                        "no_cache": true (skip the result cache),
+                        "idem": "<key>" (a string, echoed on the terminal
+                        response), "trace": {...} (accepted, no effect)
+    response: {"id", "video_id", "caption", "latency_ms", "decode_steps"}
+              (a cache hit adds "cached": true; a streamed final adds
+              "stream": true, "final": true, "chunks": N, "ttft_ms")
+    stream:   {"id", "video_id", "stream": true, "seq": k, "tokens": [..],
+               "text": "<new words>", "final": false}: one line per chunk
+              with new tokens, before the final; the "text" fragments
+              joined by spaces are the caption
+    health:   {"op": "health", "status": "ok"|"degraded"|"draining",
+               "queue_depth", "residents", "recovery": {...}, ...}
+    stats:    {"op": "stats", ...the engine's stats()...}
+    ping:     {"op": "ping", "seq", "t0", "mono", "wall", "pid"}
+    dump:     {"op": "dump", "error": "no_recorder"} (no flight recorder)
+    reject:   {"id", "error": "shed" | "bad_request" | "unknown_video"
+               | "unknown_op" | "rejected_draining" | "expired"
+               | "admit_failed", ...}; "expired" carries "where"
+              ("queued" | "resident"), and a deadline shed adds "why":
+              "deadline_unmeetable".  A streamed request's terminal line
+              carries "stream": true, "final": true whatever it says.
 
-Failures answer on the same line protocol: ``bad_request`` (unparseable
-line, no ``video_id``, wrong feature shapes), ``unknown_video``, ``shed``
-(the bounded queue is full) and, during a drain, ``rejected_draining``.
+Reader threads (stdin, or one per socket connection) only put ``(line,
+respond)`` into an inbox; the scheduler loop alone touches the engine.
+A bad line gets a per-line error and counts ``serve_bad_lines``; it
+never stops the loop.  Responses are written under one write lock, and a
+socket connection's ``respond`` then takes its own connection lock:
+write before connection, always in that order.
 
 Shutdown: stdin EOF finishes every accepted request and exits 0.
-SIGTERM/SIGINT drains: resident captions complete, queued requests are
-rejected, and the process exits 75 (``EXIT_PREEMPTED``: transient,
-retry).  The socket front end, streaming, deadlines and the health plane
-of the reference server are not ported yet.
-
-A reader thread moves stdin lines into an inbox; only the scheduler loop
-touches the engine.
+SIGTERM/SIGINT (``resilience.preemption.PreemptionHandler``) drains:
+resident captions complete, queued requests are answered
+``rejected_draining``, and the process exits 75 (``EXIT_PREEMPTED``).  A
+second signal during the drain aborts it: the unfinished residents are
+answered ``rejected_draining`` too, and the exit is 143
+(``EXIT_SIGTERM``).  With a watchdog attached the loop beats it once per
+iteration, so a wedged loop becomes exit 124, and publishes a copy of
+the health reply once per iteration (``published_health``): the
+watchdog's heartbeat reads that copy and never the engine.
 """
 
 from __future__ import annotations
 
 import json
+import logging
+import os
 import queue
-import signal
+import socket
 import sys
 import threading
 import time
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 
-from ..resilience.exitcodes import EXIT_OK, EXIT_PREEMPTED
-from .engine import Completion, ServingEngine
+from ..resilience.exitcodes import EXIT_OK, EXIT_PREEMPTED, EXIT_SIGTERM
+from ..resilience.garble import health_status
+from .engine import Completion, Dropped, ServingEngine, StreamChunk
+
+log = logging.getLogger(__name__)
 
 IDLE_SLEEP_S = 0.002     # scheduler nap when idle with nothing to read
-
-
-class PreemptionHandler:
-    """SIGTERM/SIGINT -> ``requested``, checked between scheduler steps."""
-
-    def __init__(self):
-        self.requested = False
-
-    def _on_signal(self, signum, frame) -> None:
-        self.requested = True
-
-    def install(self) -> "PreemptionHandler":
-        signal.signal(signal.SIGTERM, self._on_signal)
-        signal.signal(signal.SIGINT, self._on_signal)
-        return self
 
 
 class CaptionServer:
     """Line-protocol server around one :class:`ServingEngine`.
 
     ``feats_for(video_id)`` -> per-modality ``(T, D)`` feature list, or
-    None for an unknown id.  ``handler`` is anything with a ``requested``
-    attribute (a :class:`PreemptionHandler` or a test stub)."""
+    None for an unknown id.  ``handler`` is anything with ``requested``
+    and ``signal_count`` attributes (a ``PreemptionHandler`` or a test
+    stub).  ``watchdog`` (optional) is beaten once per loop iteration;
+    ``registry`` (optional) counts bad lines and queries.  The loop naps
+    :data:`IDLE_SLEEP_S` when it is idle with nothing to read."""
 
     def __init__(self, engine: ServingEngine, vocab,
                  feats_for: Callable[[Any], Optional[list]], *,
-                 handler=None, out=None):
+                 handler=None, out=None, watchdog=None, registry=None):
         self.engine = engine
         self.vocab = vocab
         self.feats_for = feats_for
         self.handler = handler
         self.out = out if out is not None else sys.stdout
-        self._inbox: "queue.Queue[str]" = queue.Queue()
+        self.watchdog = watchdog
+        self.registry = registry
+        if registry is not None:
+            registry.declare("serve_bad_lines", "serve_health_queries",
+                             "serve_stats_queries", "serve_dump_queries",
+                             "serve_ping_queries")
+        self._inbox: "queue.Queue" = queue.Queue()
         self._eof = threading.Event()
+        self._write_lock = threading.Lock()
+        self._draining = False
+        #: The socket front end's bound port; None until it binds.
+        self.bound_port: Optional[int] = None
+        self._published_health = self.health_payload()
 
-    def _write(self, obj: Dict[str, Any]) -> None:
-        self.out.write(json.dumps(obj) + "\n")
+    # -- responses ---------------------------------------------------------
+
+    def _write(self, respond: Callable[[str], None], obj: Dict[str, Any]):
+        with self._write_lock:
+            respond(json.dumps(obj))
+
+    def _stdout_respond(self, line: str) -> None:
+        self.out.write(line + "\n")
         self.out.flush()
+
+    @staticmethod
+    def _mark_stream_terminal(obj: Dict[str, Any], streamed) -> Dict[str, Any]:
+        """Every streamed request's last line carries ``"final": true``,
+        whatever it says, so a client reading until it never hangs."""
+        if streamed:
+            obj["stream"] = True
+            obj["final"] = True
+        return obj
 
     def _respond_completion(self, comp: Completion) -> None:
         meta = comp.meta or {}
-        self._write({"id": meta.get("id"),
-                     "video_id": meta.get("video_id"),
-                     "caption": self.vocab.decode(comp.tokens),
-                     "latency_ms": round(comp.latency_s * 1e3, 3),
-                     "decode_steps": int(comp.decode_steps)})
+        obj = {"id": meta.get("id"),
+               "video_id": meta.get("video_id"),
+               "caption": self.vocab.decode(comp.tokens),
+               "latency_ms": round(comp.latency_s * 1e3, 3),
+               "decode_steps": int(comp.decode_steps)}
+        if comp.cache_hit:
+            obj["cached"] = True
+        if meta.get("stream"):
+            obj["stream"] = True
+            obj["final"] = True
+            obj["chunks"] = int(comp.stream_chunks)
+            if comp.ttft_s is not None:
+                obj["ttft_ms"] = round(comp.ttft_s * 1e3, 3)
+        if meta.get("idem") is not None:
+            obj["idem"] = meta["idem"]
+        self._write(meta.get("respond", self._stdout_respond), obj)
 
-    def _handle_line(self, line: str) -> None:
+    def _respond_stream_chunk(self, chunk: StreamChunk) -> None:
+        meta = chunk.meta or {}
+        self._write(meta.get("respond", self._stdout_respond), {
+            "id": meta.get("id"),
+            "video_id": meta.get("video_id"),
+            "stream": True,
+            "seq": int(chunk.seq),
+            "tokens": [int(t) for t in chunk.tokens],
+            "text": self.vocab.decode(chunk.tokens),
+            "final": False,
+        })
+
+    def _respond_stream_all(self) -> bool:
+        chunks = self.engine.pop_stream_chunks()
+        for chunk in chunks:
+            self._respond_stream_chunk(chunk)
+        return bool(chunks)
+
+    def _respond_dropped(self, drop: Dropped) -> None:
+        meta = drop.meta or {}
+        obj = self._mark_stream_terminal(
+            {"id": meta.get("id"), "video_id": meta.get("video_id"),
+             "error": ("admit_failed" if drop.reason == "admit_failed"
+                       else "expired")}, meta.get("stream"))
+        if drop.reason in ("expired", "deadline_shed"):
+            obj["where"] = drop.where              # "queued" | "resident"
+        if drop.reason == "deadline_shed":
+            obj["why"] = "deadline_unmeetable"
+        if meta.get("idem") is not None:
+            obj["idem"] = meta["idem"]
+        self._write(meta.get("respond", self._stdout_respond), obj)
+
+    def _respond_dropped_all(self) -> bool:
+        drops = self.engine.pop_dropped()
+        for drop in drops:
+            self._respond_dropped(drop)
+        return bool(drops)
+
+    def _count(self, name: str) -> None:
+        if self.registry is not None:
+            self.registry.inc(name)
+
+    # -- the health plane --------------------------------------------------
+
+    def health_payload(self) -> Dict[str, Any]:
+        """The ``{"op": "health"}`` reply: the engine's ``health()`` with
+        the server's draining state folded in."""
+        h = self.engine.health()
+        h["status"] = health_status(
+            draining=self._draining or bool(
+                self.handler is not None and self.handler.requested),
+            recovering=(h["status"] == "degraded"))
+        h["op"] = "health"
+        return h
+
+    def published_health(self) -> Dict[str, Any]:
+        """The health reply as the scheduler loop last published it (once
+        per iteration, and when a drain starts): what another thread, the
+        watchdog's heartbeat, reads instead of the engine's live state.
+        A published dict is never mutated; the loop replaces it whole."""
+        return self._published_health
+
+    # -- intake (reader threads -> inbox -> scheduler loop) ----------------
+
+    def _handle_line(self, line: str, respond: Callable[[str], None]):
+        """Parse and act on one client line.  Every failure answers with
+        a per-line error and counts: the loop survives any input."""
+        try:
+            self._handle_line_inner(line, respond)
+        except Exception as e:  # one bad line must never kill the loop
+            self._count("serve_bad_lines")
+            try:
+                self._write(respond, {"id": None, "error": "bad_request",
+                                      "detail": f"line handling failed: {e}"})
+            except Exception as werr:   # the client went away mid-line
+                log.debug("error response write failed: %r", werr)
+
+    def _bad(self, respond, rid, detail: str) -> None:
+        self._count("serve_bad_lines")
+        self._write(respond, {"id": rid, "error": "bad_request",
+                              "detail": detail})
+
+    def _handle_line_inner(self, line: str,
+                           respond: Callable[[str], None]) -> None:
         line = line.strip()
         if not line:
             return
         try:
             req = json.loads(line)
         except ValueError:
-            self._write({"id": None, "error": "bad_request",
-                         "detail": "unparseable JSON line"})
+            self._bad(respond, None, "unparseable JSON line")
             return
-        if not isinstance(req, dict) or req.get("video_id") is None:
-            self._write({"id": req.get("id") if isinstance(req, dict)
-                         else None, "error": "bad_request",
-                         "detail": "expected {'id', 'video_id'}"})
+        if not isinstance(req, dict):
+            self._bad(respond, None, "expected {'id', 'video_id'}")
             return
-        rid, vid = req.get("id"), req["video_id"]
+        op = req.get("op", "caption")
+        if op == "health":
+            self._count("serve_health_queries")
+            self._write(respond, self.health_payload())
+            return
+        if op == "stats":
+            self._count("serve_stats_queries")
+            self._write(respond, {"op": "stats", **self.engine.stats()})
+            return
+        if op == "ping":
+            # Clock echo: both reads back to back.
+            self._count("serve_ping_queries")
+            self._write(respond, {"op": "ping", "seq": req.get("seq"),
+                                  "t0": req.get("t0"),
+                                  "mono": time.monotonic(),
+                                  "wall": time.time(), "pid": os.getpid()})
+            return
+        if op == "dump":
+            self._count("serve_dump_queries")
+            self._write(respond, {"op": "dump", "error": "no_recorder",
+                                  "detail": "lifecycle tracing is not "
+                                            "armed"})
+            return
+        rid = req.get("id")
+        if op not in ("caption", "stream"):
+            self._count("serve_bad_lines")
+            self._write(respond, {"id": rid, "error": "unknown_op",
+                                  "op": op,
+                                  "detail": "expected op 'caption', "
+                                            "'stream', 'health', 'stats', "
+                                            "'ping' or 'dump'"})
+            return
+        stream = op == "stream"
+        vid = req.get("video_id")
+        if vid is None:
+            self._bad(respond, rid, "expected {'id', 'video_id'}")
+            return
+        deadline_ms = req.get("deadline_ms")
+        if deadline_ms is not None:
+            try:
+                deadline_ms = float(deadline_ms)
+                if not deadline_ms >= 0:
+                    raise ValueError
+            except (TypeError, ValueError):
+                self._bad(respond, rid, "deadline_ms must be a number >= 0")
+                return
+        idem = req.get("idem")
+        if idem is not None and not isinstance(idem, str):
+            self._bad(respond, rid, "idem must be a string")
+            return
         feats = self.feats_for(vid)
         if feats is None:
-            self._write({"id": rid, "error": "unknown_video",
-                         "video_id": vid})
+            self._write(respond, {"id": rid, "error": "unknown_video",
+                                  "video_id": vid})
             return
+        meta = {"id": rid, "video_id": vid, "respond": respond,
+                "stream": stream}
+        if idem is not None:
+            meta["idem"] = idem
         try:
             ok = self.engine.submit((rid, vid),
                                     [np.asarray(f) for f in feats],
-                                    meta={"id": rid, "video_id": vid})
+                                    meta=meta, deadline_ms=deadline_ms,
+                                    stream=stream,
+                                    no_cache=bool(req.get("no_cache")))
         except ValueError as e:
-            self._write({"id": rid, "error": "bad_request",
-                         "detail": str(e)})
+            self._bad(respond, rid, str(e))
             return
         if not ok:
-            self._write({"id": rid, "error": "shed", "video_id": vid,
-                         "queue_depth": self.engine.queue_depth})
+            self._write(respond, self._mark_stream_terminal(
+                {"id": rid, "error": "shed", "video_id": vid,
+                 "queue_depth": self.engine.queue_depth}, stream))
+
+    # -- scheduler loop ----------------------------------------------------
 
     def _drain_and_exit(self) -> int:
+        self._draining = True
+        self._published_health = self.health_payload()
+        # A second signal during the drain aborts it.  The baseline is
+        # read before the announcement, so any signal after it aborts.
+        count0 = getattr(self.handler, "signal_count", 0)
+
+        def aborted() -> bool:
+            return getattr(self.handler, "signal_count", 0) > count0
+
         print(f"serve: draining {self.engine.resident_count} resident(s), "
-              f"{self.engine.queue_depth} queued", file=sys.stderr)
-        done, rejected = self.engine.drain()
+              f"{self.engine.queue_depth} queued; a second signal aborts",
+              file=sys.stderr)
+        sys.stderr.flush()
+        done, rejected = self.engine.drain(abort=aborted)
+        self._respond_stream_all()     # chunks before their finals
         for comp in done:
             self._respond_completion(comp)
-        for req in rejected:
+        self._respond_dropped_all()
+        unfinished = self.engine.resident_count
+        # Every request gets an answer: an aborted drain's residents are
+        # rejected like the queued ones.
+        for req in rejected + self.engine.resident_requests():
             meta = req.meta or {}
-            self._write({"id": meta.get("id"),
-                         "video_id": meta.get("video_id"),
-                         "error": "rejected_draining"})
+            self._write(meta.get("respond", self._stdout_respond),
+                        self._mark_stream_terminal(
+                            {"id": meta.get("id"),
+                             "video_id": meta.get("video_id"),
+                             "error": "rejected_draining"},
+                            meta.get("stream")))
+        if aborted():
+            print(f"serve: drain aborted by a second signal with "
+                  f"{unfinished} resident(s) unfinished; exiting "
+                  f"{EXIT_SIGTERM}", file=sys.stderr)
+            return EXIT_SIGTERM
         print(f"serve: drained {len(done)} in-flight, rejected "
               f"{len(rejected)} queued; exiting {EXIT_PREEMPTED}",
               file=sys.stderr)
@@ -134,38 +353,105 @@ class CaptionServer:
 
     def _loop(self) -> int:
         while True:
+            if self.watchdog is not None:
+                self.watchdog.beat()
             if self.handler is not None and self.handler.requested:
                 return self._drain_and_exit()
             moved = False
             while True:
                 try:
-                    line = self._inbox.get_nowait()
+                    line, respond = self._inbox.get_nowait()
                 except queue.Empty:
                     break
-                self._handle_line(line)
+                self._handle_line(line, respond)
                 moved = True
             comps = self.engine.step()
+            # A request's stream lines precede its final response.
+            moved = self._respond_stream_all() or moved
             for comp in comps:
                 self._respond_completion(comp)
-            moved = moved or bool(comps)
+            moved = self._respond_dropped_all() or bool(comps) or moved
+            self._published_health = self.health_payload()
             if self._eof.is_set() and self.engine.idle \
                     and self._inbox.empty():
                 return EXIT_OK
             if not moved and self.engine.idle:
                 time.sleep(IDLE_SLEEP_S)
 
+    # -- front ends --------------------------------------------------------
+
     def run_stdin(self, lines=None) -> int:
         """Serve JSONL requests from ``lines`` (default: sys.stdin) until
-        EOF (exit 0) or a preemption signal (drain, exit 75)."""
+        EOF (exit 0) or a preemption signal (drain, exit 75 or 143)."""
         src = lines if lines is not None else sys.stdin
 
         def read():
             try:
                 for line in src:
-                    self._inbox.put(line)
+                    self._inbox.put((line, self._stdout_respond))
             finally:
                 self._eof.set()
 
         threading.Thread(target=read, name="serve-stdin",
                          daemon=True).start()
         return self._loop()
+
+    def run_socket(self, port: int) -> int:
+        """Serve the line protocol on 127.0.0.1:``port`` (0: an ephemeral
+        port), announced on stderr as ``serve: listening on
+        127.0.0.1:<port>``, until a preemption signal drains it (or
+        ``_eof`` is set with the engine idle)."""
+        srv = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        srv.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        srv.bind(("127.0.0.1", int(port)))
+        srv.listen()
+        srv.settimeout(0.2)
+        self.bound_port = srv.getsockname()[1]
+        print(f"serve: listening on 127.0.0.1:{self.bound_port}",
+              file=sys.stderr)
+        sys.stderr.flush()
+        conns: List[socket.socket] = []
+
+        def reader(conn: socket.socket) -> None:
+            lock = threading.Lock()
+
+            def respond(line: str) -> None:
+                with lock:
+                    try:
+                        conn.sendall(line.encode() + b"\n")
+                    except OSError:
+                        pass  # the client went away; its answer is lost
+
+            try:
+                with conn.makefile("r", encoding="utf-8",
+                                   errors="replace") as f:
+                    for line in f:
+                        self._inbox.put((line, respond))
+            except OSError:
+                pass
+
+        def accept() -> None:
+            while not self._eof.is_set():
+                try:
+                    conn, _ = srv.accept()
+                except socket.timeout:
+                    continue
+                except OSError:
+                    return
+                conns.append(conn)
+                threading.Thread(target=reader, args=(conn,),
+                                 name="serve-conn", daemon=True).start()
+
+        threading.Thread(target=accept, name="serve-accept",
+                         daemon=True).start()
+        try:
+            return self._loop()
+        finally:
+            self._eof.set()  # stops the accept loop
+            for conn in conns:
+                try:
+                    conn.shutdown(socket.SHUT_RDWR)
+                except OSError:
+                    pass
+                conn.close()
+            srv.close()

@@ -65,20 +65,10 @@ import sys
 from .data.dataset import add_split_args, refuse_h5_flags
 from .metrics.coco_eval import KNOWN_EVAL_METRICS
 from .resilience.exitcodes import EXIT_ADVANTAGE_ABORT, EXIT_OK, EXIT_PREEMPTED
-from .resilience.faults import FaultPlan
+from .resilience.faults import FaultPlan, fault_plan_arg
 from .resilience.preemption import PreemptedExit, PreemptionHandler
 from .training.state import OPTIMIZERS
 from .training.trainer import NegativeAdvantageAbort, Trainer
-
-
-def _fault_plan(text: str) -> str:
-    """argparse type of ``--fault_plan``: a malformed plan is a usage
-    error (exit 2) naming the bad spec, not a start-up traceback."""
-    try:
-        FaultPlan.parse(text)
-    except ValueError as e:
-        raise argparse.ArgumentTypeError(str(e)) from None
-    return text
 
 
 def positive_int(text: str) -> int:
@@ -225,7 +215,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     # like a flag's.
     g.add_argument("--fault_plan",
                    default=os.environ.get("CST_FAULT_PLAN") or None,
-                   type=_fault_plan,
+                   type=fault_plan_arg,
                    help="drills only: comma-separated fault specs, e.g. "
                         "'preempt@step=3,wedge@step=5,nan_grad@step=2*3,"
                         "ckpt_torn@step=4' (kind@step=N, kind@batch=N, "

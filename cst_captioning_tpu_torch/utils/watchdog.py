@@ -31,21 +31,27 @@ class ProgressWatchdog:
     """Daemon-thread heartbeat monitor.
 
     ``beat()`` is one monotonic read and store, safe from any thread.  A
-    ``timeout_s`` of 0 disables it: every method is then a no-op.
+    ``timeout_s`` of 0 disables the exit; without a heartbeat interval
+    every method is then a no-op.
 
     With ``heartbeat_path`` set, the thread also writes a small JSON file
     at start and once per poll (the gap since the last beat and
-    ``payload()``).  ``describe`` and ``payload`` must read host state
-    only: they run while the main thread may be stuck inside a device
-    call, and a device read here would hang the thread reporting the hang.
+    ``payload()``); a positive ``heartbeat_interval_s`` keeps it writing
+    at that interval even with the timeout at 0 (the serving health
+    plane: liveness without a kill policy).  ``describe`` and ``payload``
+    must read host state only: they run while the main thread may be
+    stuck inside a device call, and a device read here would hang the
+    thread reporting the hang.
     """
 
     def __init__(self, timeout_s: float,
                  describe: Optional[Callable[[], str]] = None,
                  on_timeout: Optional[Callable[[float], None]] = None,
                  heartbeat_path: Optional[str] = None,
-                 payload: Optional[Callable[[], Dict]] = None):
+                 payload: Optional[Callable[[], Dict]] = None,
+                 heartbeat_interval_s: float = 0.0):
         self.timeout_s = float(timeout_s)
+        self._hb_interval = float(heartbeat_interval_s or 0.0)
         self._describe = describe or (lambda: "")
         self._on_timeout = on_timeout or self._die
         self._heartbeat_path = heartbeat_path
@@ -54,12 +60,21 @@ class ProgressWatchdog:
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
 
+    def _armed(self) -> bool:
+        return self.timeout_s > 0 or (
+            self._heartbeat_path is not None and self._hb_interval > 0)
+
     def _poll_s(self) -> float:
-        return max(1.0, min(30.0, self.timeout_s / 4.0))
+        polls = []
+        if self.timeout_s > 0:
+            polls.append(max(1.0, min(30.0, self.timeout_s / 4.0)))
+        if self._heartbeat_path is not None and self._hb_interval > 0:
+            polls.append(max(0.05, self._hb_interval))
+        return min(polls)
 
     # -- lifecycle ---------------------------------------------------------
     def start(self) -> "ProgressWatchdog":
-        if self.timeout_s > 0 and self._thread is None:
+        if self._armed() and self._thread is None:
             self._stop.clear()
             self.beat()
             self._thread = threading.Thread(
@@ -107,7 +122,7 @@ class ProgressWatchdog:
         while not self._stop.wait(poll):
             gap = time.monotonic() - self._last
             self._write_heartbeat(gap)
-            if gap > self.timeout_s:
+            if self.timeout_s > 0 and gap > self.timeout_s:
                 self._on_timeout(gap)
                 # The default handler never returns (os._exit); an
                 # injected one that does wants monitoring to go on from a

@@ -153,6 +153,81 @@ def test_zipfian_mix_equals_the_references(alpha):
                           ref_serving_bench.zipfian_mix(50, 12, alpha, 779))
 
 
+@pytest.fixture(scope="module")
+def ref_probe_record():
+    """The reference's probe record with streaming and the cache on, on a
+    tiny model, and its engine's recovery counters: the key sets the
+    port's records are held to."""
+    import jax
+    from cst_captioning_tpu.models import CaptionModel
+    from cst_captioning_tpu.serving.engine import ServingEngine
+
+    model = CaptionModel(vocab_size=20, embed_size=16, hidden_size=16,
+                         attn_size=16, dropout_rate=0.0)
+    variables = model.init(jax.random.PRNGKey(0),
+                           [np.zeros((2, 4, 8), np.float32)],
+                           np.zeros((2, 6), np.int32))
+    rec = ref_serving_bench.serving_probe(
+        model, variables, [(4, 8)], num_requests=4, rate_hz=50.0,
+        max_len=6, decode_chunk=2, bucket_sizes=(1, 2), seed=4,
+        stream=True, cache_size=8, unique_videos=2)
+    recovery = ServingEngine(model, variables, [(4, 8)],
+                             max_len=6).recovery_counters()
+    return rec, set(recovery)
+
+
+# EOS bias 0 lets the untrained model's captions run across several
+# chunks (the default 10 ends them at once: nothing would stream); rate
+# 5/s spaces a video's repeat well after its first decode, so it hits.
+SERVE_RECORDS = {
+    "stream": ["--serve_requests", "6", "--serve_rate", "200",
+               "--serve_stream", "1", "--probe_eos_bias", "0"],
+    "cache": ["--serve_requests", "6", "--serve_rate", "5",
+              "--serve_cache", "8", "--serve_unique", "2"],
+    "cache_compare": ["--serve_requests", "6", "--serve_rate", "5",
+                      "--serve_cache", "8", "--serve_unique", "2",
+                      "--serve_cache_compare", "1"],
+}
+
+
+@pytest.mark.parametrize("case", list(SERVE_RECORDS))
+def test_serving_stream_and_cache_records(case, ref_probe_record, capsys):
+    assert bench.main(TINY + ["--stage", "serving"]
+                      + SERVE_RECORDS[case]) == 0
+    rec = json.loads(capsys.readouterr().out)
+    ref, recovery = ref_probe_record
+    assert rec["completed"] == rec["answered"] == 6
+    # The recovery audit, as the reference's probe renders it: all 0.
+    assert recovery <= set(ref)
+    assert {k: rec.get(k) for k in recovery} == dict.fromkeys(recovery, 0)
+    st, ca = rec["stream"], rec["cache"]
+    if case == "stream":
+        assert set(st) == set(ref["stream"])
+        assert st["enabled"] and st["prefix_ok"]
+        # Precondition: every caption spans at least two chunks.
+        assert st["chunks"] >= 2 * 6
+        assert st["ttft_p50_ms"] is not None
+        assert st["chunk_gap_p50_ms"] is not None
+        assert ca == {"enabled": False}
+        assert "cache_speedup" not in rec
+        return
+    assert st == {"enabled": False}
+    assert set(ca) == set(ref["cache"])
+    assert ca["enabled"] and ca["parity_ok"] and ca["parity_mismatches"] == 0
+    assert ca["misses"] >= 2 and ca["hits"] >= 1
+    assert ca["hits"] + ca["misses"] == 6
+    assert ca["hit_rate"] == round(ca["hits"] / 6, 4)
+    assert ca["bypass"] == ca["errors"] == ca["evictions"] == 0
+    assert ca["entries"] == 2 and ca["capacity"] == 8
+    assert rec["config"]["serve_cache"] == 8
+    if case == "cache_compare":
+        assert rec["cache_off_captions_per_sec"] > 0
+        assert rec["cache_speedup"] == round(
+            rec["value"] / rec["cache_off_captions_per_sec"], 3)
+    else:
+        assert "cache_speedup" not in rec
+
+
 @pytest.mark.parametrize("flag", sorted(bench.REFUSED))
 def test_refused_flags_raise(flag, capsys):
     value = {"serve_blackbox": "bb.json", "scan_unroll": "4",
