@@ -142,7 +142,25 @@ Phases, each printed as it runs; any failure exits non-zero:
    a ``health`` op, SIGTERM with 16 more in flight: exit 75, every
    request answered), a second process drained and aborted by a second
    signal (exit 143) and a third given a plan past the ladder (exit 124).
-   The phase's seconds are printed (budget 90 s).
+   The phase's seconds are printed (budget 90 s);
+14. the fleet, at phase 4's width and model: (a) float32 K2 gives a row
+   the same bits alone, in a batch of 4 and of 8, and at another index;
+   (b) 3 replicas sharing the card serve 32 greedy requests through
+   ``CaptionServer`` (every caption equal to phase 4's, routed counts and
+   captions/s printed), and 2 replicas on the reference cell with K1
+   serve 16 (equal to phase 6's); (c) ``kill_replica(1)`` with residents
+   aboard: captions bit-identical, 1 kill and 1 restart, no kernel-library
+   event, killed -> requeued -> responded in the lifecycle stream; (d)
+   ``serve_wedge@replica=0`` past a 0/0 ladder restarts the replica,
+   captions bit-identical; (b)-(d) with ``CST_LOCK_SANITIZER=1`` and zero
+   violations; (e) ``python -m cst_captioning_tpu_torch.serve_fleet``
+   with both replicas wedged at restart limit 0: exit 124 and a blackbox
+   (started first, so its start-up overlaps (a)-(d)); (f) 16 greedy
+   requests with the lifecycle tracer off and on, twice, req/s and
+   p50/p99 of each, the dump op's event count and the trace parts; (g)
+   the bench's ``--replicas 3 --serve_kill_replica 1 --serve_trace 1``
+   record, ``fleet.parity_ok`` and the accounting true.  The phase's
+   seconds are printed (budget 90 s).
 
 Each serving phase sets every kernel's launch count to 0 just before it
 and reads the counts just after; a kernel of the path launched other
@@ -155,7 +173,8 @@ dispatched; the fused path builds no host reward.
 Output: phase lines as they run; then a JSON object with one entry per
 kernel and storage dtype (``storage``; times at the serving batch B = 8,
 every measured batch under ``by_batch``; launches of phases 4-7, 9, 10,
-12 and 13 for float32, of phases 8 and 11 for bfloat16); then the card line (``nvidia-smi``
+12, 13 and 14 for float32, of phases 8, 11 and 14g for bfloat16); then
+the card line (``nvidia-smi``
 name and power limit); and last ``{"ok": true, "device": ...}``.
 Without a CUDA device, or run outside a checkout of the repository, the
 script exits non-zero and prints no result.
@@ -1867,7 +1886,7 @@ def native_scorer_check(scored) -> None:
              "rtol 1e-9")
 
 
-def run_bench(name: str, *argv) -> dict:
+def run_bench(name: str, *argv, phase: str = "phase 11") -> dict:
     """One bench process; fails unless it exits 0 with one JSON line.
     Prints that line.  -> the record."""
     env = dict(os.environ, PYTHONPATH=HERE)
@@ -1879,7 +1898,7 @@ def run_bench(name: str, *argv) -> dict:
     lines = proc.stdout.strip().splitlines()
     if proc.returncode != 0 or len(lines) != 1:
         print(proc.stderr[-6000:], file=sys.stderr)
-        fail(f"phase 11 bench {name}: exit {proc.returncode}, "
+        fail(f"{phase} bench {name}: exit {proc.returncode}, "
              f"{len(lines)} lines of output")
     print(f"bench {name}: {secs:.1f} s")
     print(lines[0])
@@ -2633,6 +2652,365 @@ def rest_phase(greedy_caps, beam_caps) -> int:
         fail("phase 13: K2 never launched")
     return total
 
+# Phase 14: the fleet, at phase 4's width and model, on K2.  The dead-fleet
+# CLI process of (e) starts first, so its start-up overlaps (a)-(d).
+FLEET_BUDGET_S = 90.0
+FLEET_REPLICAS, FLEET_REQUESTS = 3, 32
+LIFECYCLE_RUNS = ("off", "on", "off", "on")
+
+
+def k2_f32_batch_invariance() -> None:
+    """Phase 14a: float32 K2 gives a row the same bits alone (B = 1), in a
+    batch of 4 and of 8, and moved to another index.  A re-queued request
+    decodes again in another slot, maybe in another bucket, and its
+    caption must not move.  Comparison launches: not counted."""
+    import torch
+
+    from cst_captioning_tpu_torch.ops import decode_cell_kernel as k2
+
+    gen = torch.Generator().manual_seed(2468)
+    b = 8
+    q, pm, mem, v = attention_inputs(b, gen)
+    x = torch.randn(b, E, generator=gen).cuda()
+    c = torch.randn(b, H, generator=gen).cuda()
+    h = torch.tanh(torch.randn(b, H, generator=gen)).cuda()
+    wg = (torch.randn(E + 2 * H, 4 * H, generator=gen) / (E + H) ** 0.5).cuda()
+    bias = (0.1 * torch.randn(4 * H, generator=gen)).cuda()
+    args = (x, c, h, q, pm, mem, v, wg, bias)
+    full = k2.fused_decode_cell(*args)
+    half = k2.fused_decode_cell(*(a[:4].contiguous() for a in args[:6]),
+                                v, wg, bias)
+    same4 = all(torch.equal(f[:4], g) for f, g in zip(full, half))
+    moved_alone = bf16_batch_invariant(k2.fused_decode_cell, args, 6)
+    alone = all(
+        torch.equal(f[r:r + 1], g)
+        for r in range(b)
+        for f, g in zip(full, k2.fused_decode_cell(
+            *(a[r:r + 1].contiguous() for a in args[:6]), v, wg, bias)))
+    torch.cuda.synchronize()
+    print(f"fleet K2 float32 batch invariance: B=1 (each of 8 rows alone) "
+          f"{alone}, B=4 {same4}, B=8 moved to another index and alone "
+          f"{moved_alone}")
+    if not (alone and same4 and moved_alone):
+        fail("phase 14: float32 K2 is not bitwise batch-invariant")
+
+
+def fleet_cli(*extra):
+    """The fleet CLI at phase 4's width and model, as a process."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "cst_captioning_tpu_torch.serve_fleet",
+         "--serve_demo", "1", "--serve_demo_eos_bias", EOS_BIAS,
+         *WIDTH_ARGS, "--decode_kernel", "fused", "--beam_size", "1",
+         *extra],
+        stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, cwd=HERE,
+        env=dict(os.environ, PYTHONPATH=HERE))
+
+
+def fleet_phase(greedy_caps, ref_caps) -> dict:
+    """Phase 14: (a) float32 K2's batch invariance; (b) 3 replicas on one
+    card serving 32 greedy requests through ``CaptionServer``, and 2
+    replicas on the reference cell with K1; (c) a replica killed mid-run;
+    (d) a replica-targeted wedge past the ladder, restarted; (e) the fleet
+    CLI with every replica spent: exit 124 and a blackbox; (f) greedy
+    serving with the lifecycle tracer on and off; (g) the bench's fleet
+    record.  (b)-(d) run with the lock sanitizer armed.  -> {"K1", "K2"
+    float32 launches, "K2_bf16" the bench's}."""
+    import tempfile
+
+    import torch
+
+    from cst_captioning_tpu_torch import serve
+    from cst_captioning_tpu_torch.ops import _cuda, launch_counts, \
+        reset_launch_counts
+    from cst_captioning_tpu_torch.resilience.faults import FaultPlan
+    from cst_captioning_tpu_torch.serving.engine import ServingEngine
+    from cst_captioning_tpu_torch.serving.fleet import FleetRouter
+    from cst_captioning_tpu_torch.serving.server import CaptionServer
+    from cst_captioning_tpu_torch.telemetry.lifecycle import LifecycleTracer
+    from cst_captioning_tpu_torch.telemetry.spans import SpanTracer
+    from cst_captioning_tpu_torch.utils import locksan
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fleet_")
+    box = os.path.join(tmp, "dead_blackbox.json")
+    p_dead = fleet_cli("--serve_replicas", "2", "--serve_restart_limit",
+                       "0", "--serve_retry_limit", "0",
+                       "--serve_rebuild_limit", "0", "--serve_cache", "0",
+                       "--fault_plan",
+                       "serve_wedge@replica=0,serve_wedge@replica=1",
+                       "--serve_blackbox", box)
+    total = {"K1": 0, "K2": 0, "K2_bf16": 0}
+    try:
+        k2_f32_batch_invariance()
+
+        os.environ[locksan.ENV_FLAG] = "1"
+        os.environ[locksan.ENV_RECEIPT] = os.path.join(tmp, "locksan.json")
+        violations0 = len(locksan.violations())
+
+        def backend(*extra):
+            opt = serve.parse_args(["--serve_demo", "1",
+                                    "--serve_demo_eos_bias", EOS_BIAS,
+                                    "--beam_size", "1"]
+                                   + WIDTH_ARGS + list(extra))
+            return (opt,) + serve.build_backend(opt)
+
+        opt, model, vocab, feat_shapes, feats_for = backend(
+            "--decode_kernel", "fused")
+
+        def router(n, mdl=model, plan=None, lifecycle=None, **kw):
+            def factory(k):
+                return ServingEngine(
+                    mdl, feat_shapes,
+                    **{**serve.engine_kwargs(opt), "queue_limit": 0, **kw},
+                    fault_plan=plan.for_replica(k) if plan else None,
+                    lifecycle=(lifecycle.for_replica(k) if lifecycle
+                               else None))
+            fleet = FleetRouter(factory, n, lifecycle=lifecycle)
+            fleet.warm()
+            return fleet
+
+        def line(i):
+            return json.dumps({"id": i, "video_id": f"v{i % 16}"}) + "\n"
+
+        def serve_fleet(fleet, n, lifecycle=None, after_step=None):
+            """Serve ``n`` requests through ``CaptionServer`` on ``fleet``
+            -> ({id: caption}, seconds, K2 and K1 launches)."""
+            if after_step is not None:
+                real = fleet.step
+
+                def step():
+                    done = real()
+                    after_step(fleet)
+                    return done
+
+                fleet.step = step
+            out = io.StringIO()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            rc = CaptionServer(fleet, vocab, feats_for, out=out,
+                               health_source=fleet.health,
+                               lifecycle=lifecycle).run_stdin(
+                lines=[line(i) for i in range(n)])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = launch_counts()
+            if rc != 0:
+                fail(f"phase 14: fleet server exited {rc}")
+            replies = [json.loads(ln) for ln in out.getvalue().splitlines()]
+            caps = {r["id"]: r.get("caption") for r in replies}
+            if sorted(caps) != list(range(n)):
+                fail(f"phase 14: answered {sorted(caps)}")
+            return (caps, seconds, launches["fused_decode_cell"],
+                    launches["fused_additive_attention"])
+
+        def equal_to(caps, want):
+            return sum(caps[i] == want[f"v{i % 16}"] for i in caps)
+
+        # (b) 3 replicas on one card, 32 greedy requests.
+        lc = LifecycleTracer()
+        fleet = router(FLEET_REPLICAS, lifecycle=lc)
+        caps, secs, k2n, _ = serve_fleet(fleet, FLEET_REQUESTS, lc)
+        st = fleet.stats()
+        check_launches("fleet 3 replicas", "K2", k2n, st["decode_steps"], 2)
+        total["K2"] += k2n
+        routed = {}
+        for ev in lc.events():
+            if ev["kind"] == "routed":
+                routed[ev["replica"]] = routed.get(ev["replica"], 0) + 1
+        same = equal_to(caps, greedy_caps)
+        print(f"fleet {FLEET_REPLICAS} replicas on one card (replicas "
+              f"share one card): {FLEET_REQUESTS} requests in {secs:.4f} s "
+              f"= {FLEET_REQUESTS / secs:.3f} captions/s; {same}/"
+              f"{FLEET_REQUESTS} captions equal to phase 4's; routed per "
+              f"replica {dict(sorted(routed.items()))}; completed per "
+              f"replica {[p['completed'] for p in st['per_replica']]}; "
+              f"latency p50={st['latency_p50_ms']:.3f} ms "
+              f"p99={st['latency_p99_ms']:.3f} ms; K2 launches {k2n} in "
+              f"{st['decode_steps']} decode steps; accounting "
+              f"{lc.accounting()['terminal_ok']}")
+        if same != FLEET_REQUESTS or not lc.accounting()["terminal_ok"]:
+            fail("phase 14 (b): fleet captions differ from phase 4's")
+
+        # (b') 2 replicas on the reference cell, attention on K1.
+        r_opt, r_model, _, _, _ = backend("--decode_kernel", "reference",
+                                          "--pallas_attention", "1")
+        k1_fleet = router(2, mdl=r_model)
+        caps, secs, _, k1n = serve_fleet(k1_fleet, 16)
+        st = k1_fleet.stats()
+        check_launches("fleet reference-k1", "K1", k1n, st["decode_steps"],
+                       1)
+        total["K1"] += k1n
+        same = equal_to(caps, ref_caps)
+        print(f"fleet 2 replicas on the reference cell with K1 (replicas "
+              f"share one card): 16 requests in {secs:.4f} s; {same}/16 "
+              f"captions equal to phase 6's; K1 launches {k1n} in "
+              f"{st['decode_steps']} decode steps")
+        if same != 16:
+            fail("phase 14 (b'): K1 fleet captions differ from phase 6's")
+        del k1_fleet, r_model
+
+        # (c) kill replica 1 once half the requests are in.
+        lc = LifecycleTracer()
+        fleet = router(FLEET_REPLICAS, lifecycle=lc)
+        killed = []
+
+        def kill_once(f):
+            eng = f._replicas[1].engine
+            if not killed and f.fleet_counters()["fleet_routed"] >= \
+                    FLEET_REQUESTS // 2 and eng.resident_count:
+                killed.extend(r.request_id for r in eng.resident_requests())
+                f.kill_replica(1)
+
+        events0 = _cuda.library_events()
+        caps, secs, k2n, _ = serve_fleet(fleet, FLEET_REQUESTS, lc,
+                                         after_step=kill_once)
+        loads = _cuda.library_events() - events0
+        st = fleet.stats()
+        check_launches("fleet kill", "K2", k2n, st["decode_steps"], 2)
+        total["K2"] += k2n
+        chains = {}
+        for ev in lc.events():
+            chains.setdefault(ev["id"], []).append(ev["kind"])
+        chain_ok = bool(killed) and all(
+            chains[r].index("killed") < chains[r].index("requeued")
+            < chains[r].index("responded") for r in killed)
+        same = equal_to(caps, greedy_caps)
+        fc = st["fleet"]
+        print(f"fleet kill_replica(1): {len(killed)} resident(s) killed; "
+              f"{same}/{FLEET_REQUESTS} captions bit-identical to phase "
+              f"4's; kills {fc['fleet_replica_kills']}, restarts "
+              f"{fc['fleet_replica_restarts']}, rerouted "
+              f"{fc['fleet_rerouted']}; library events {loads}; "
+              f"killed -> requeued -> responded {chain_ok}; requeue p99 "
+              f"{lc.attribution_report()['components']['requeue']['p99_ms']}"
+              f" ms; {secs:.4f} s")
+        if (same != FLEET_REQUESTS or loads or not chain_ok
+                or (fc["fleet_replica_kills"],
+                    fc["fleet_replica_restarts"]) != (1, 1)):
+            fail(f"phase 14 (c): {fc}, loads {loads}, chains {chain_ok}")
+
+        # (d) a replica-targeted wedge past the ladder: an in-process 124,
+        # taken as a restart.
+        fleet = router(2, plan=FaultPlan.parse("serve_wedge@replica=0"),
+                       retry_limit=0, rebuild_limit=0)
+        caps, secs, k2n, _ = serve_fleet(fleet, 16)
+        st = fleet.stats()
+        check_launches("fleet wedge", "K2", k2n, st["decode_steps"], 2)
+        total["K2"] += k2n
+        same = equal_to(caps, greedy_caps)
+        fc = st["fleet"]
+        print(f"fleet serve_wedge@replica=0, ladder 0/0: restarts "
+              f"{fc['fleet_replica_restarts']}, kills "
+              f"{fc['fleet_replica_kills']}; {same}/16 captions "
+              f"bit-identical to phase 4's")
+        if same != 16 or fc["fleet_replica_restarts"] != 1:
+            fail(f"phase 14 (d): {fc}")
+        del fleet
+
+        found = locksan.violations()[violations0:]
+        print(f"fleet lock sanitizer: {len(found)} violations")
+        if found or os.path.exists(os.environ[locksan.ENV_RECEIPT]):
+            fail(f"phase 14: lock-order violations {found}")
+        del os.environ[locksan.ENV_FLAG]
+
+        # (e) every replica spent: exit 124 with a blackbox.
+        out, err = p_dead.communicate(
+            "".join(line(i) for i in range(4)), timeout=120)
+        doc = json.load(open(box)) if os.path.exists(box) else {}
+        stats = [ln for ln in err.splitlines()
+                 if ln.startswith("serve_fleet: {")]
+        print(f"fleet CLI, every replica spent: exit {p_dead.returncode}; "
+              + "; ".join(ln for ln in err.splitlines()
+                          if "UNRECOVERABLE" in ln or "blackbox" in ln)
+              + f"; blackbox {doc.get('events_retained')} events, "
+              f"replicas {[p['status'] for p in doc.get('health', {}).get('per_replica', [])]}")
+        if p_dead.returncode != 124 or doc.get("reason") != "unrecoverable":
+            fail(f"phase 14 (e): exit {p_dead.returncode}\n" + err[-3000:])
+        # Its wedges fire before any chunk launches: it runs no kernel.
+        if not stats or json.loads(stats[-1][len("serve_fleet: "):])[
+                "decode_steps"]:
+            fail(f"phase 14 (e): stats {stats}")
+
+        # (f) greedy serving, one engine, the lifecycle tracer on and off.
+        lines16 = [line(i) for i in range(16)]
+        for run in LIFECYCLE_RUNS:
+            lc = tracer = None
+            trace_dir = os.path.join(tmp, f"trace_{run}_{time.time_ns()}")
+            if run == "on":
+                tracer = SpanTracer(trace_dir)
+                lc = LifecycleTracer(tracer=tracer)
+            eng = ServingEngine(model, feat_shapes, **serve.engine_kwargs(
+                opt), tracer=tracer, lifecycle=lc)
+            out = io.StringIO()
+            server = CaptionServer(eng, vocab, feats_for, out=out,
+                                   lifecycle=lc, blackbox_path=os.path.join(
+                                       tmp, "box.json"))
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            rc = server.run_stdin(lines=lines16)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            k2n = launch_counts()["fused_decode_cell"]
+            st = eng.stats()
+            check_launches(f"lifecycle {run}", "K2", k2n, st["decode_steps"],
+                           2)
+            total["K2"] += k2n
+            caps = {json.loads(r)["id"]: json.loads(r).get("caption")
+                    for r in out.getvalue().splitlines()}
+            extra = ""
+            if run == "on":
+                replies = []
+                server._handle_line('{"op": "dump"}',
+                                    lambda s: replies.append(json.loads(s)))
+                tracer.close()
+                parts = os.listdir(trace_dir)
+                extra = (f"; dump op {replies[0]}; trace parts {len(parts)} "
+                         f"({sum(os.path.getsize(os.path.join(trace_dir, p)) for p in parts)} bytes); "
+                         f"attribution reconciled "
+                         f"{st['attribution']['reconcile_ok']}")
+                if not parts or replies[0].get("events", 0) == 0:
+                    fail(f"phase 14 (f): {replies}, parts {parts}")
+            print(f"fleet lifecycle {run}: 16 requests in {secs:.4f} s = "
+                  f"{16 / secs:.3f} req/s; latency p50="
+                  f"{st['latency_p50_ms']:.3f} ms p99="
+                  f"{st['latency_p99_ms']:.3f} ms" + extra)
+            if rc != 0 or equal_to(caps, greedy_caps) != 16:
+                fail(f"phase 14 (f) lifecycle {run}: captions differ")
+
+        # (g) the bench's fleet record.
+        rec = run_bench(
+            "serving fleet", "--stage", "serving", "--replicas",
+            str(FLEET_REPLICAS), "--serve_kill_replica", "1",
+            "--serve_trace", "1", "--serve_blackbox",
+            os.path.join(tmp, "bench_box.json"), "--serve_buckets",
+            ",".join(map(str, BENCH_BUCKETS)), "--probe_eos_bias", "0",
+            phase="phase 14")
+        fl, lcr = rec.get("fleet", {}), rec.get("lifecycle", {})
+        print(f"fleet bench: {rec['value']} captions/s ({FLEET_REPLICAS} "
+              f"replicas share one card: {rec.get('replicas_share_device')})"
+              f"; parity_ok {fl.get('parity_ok')}; kills "
+              f"{fl.get('fleet_replica_kills')}; accounting "
+              f"{lcr.get('terminal_ok')}; attribution reconciled "
+              f"{rec.get('attribution', {}).get('reconcile_ok')}")
+        if not (fl.get("parity_ok") and lcr.get("terminal_ok")
+                and rec.get("attribution", {}).get("reconcile_ok")
+                and fl.get("fleet_replica_kills") == 1
+                and rec["launches"]["fused_decode_cell"] > 0):
+            fail(f"phase 14 (g): {rec}")
+        total["K2_bf16"] += rec["launches"]["fused_decode_cell"]
+    finally:
+        os.environ.pop(locksan.ENV_FLAG, None)
+        if p_dead.poll() is None:
+            p_dead.kill()
+            p_dead.wait()
+    seconds = time.perf_counter() - t_phase
+    print(f"fleet phase: {seconds:.1f} s (budget {FLEET_BUDGET_S:.0f} s); "
+          f"launches {total}")
+    if not (total["K1"] and total["K2"]):
+        fail(f"phase 14: a kernel never launched: {total}")
+    return total
+
 
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "cst_captioning_tpu_torch")):
@@ -2729,9 +3107,14 @@ def main() -> int:
     # deadlines, the socket CLI and its exits), on K2.
     rest_launch = rest_phase(greedy_caps, beam_caps)
 
+    # Phase 14: the fleet (K2 batch invariance, replicas on one card, a
+    # kill, a restart, the CLI's exit 124, lifecycle on and off, the
+    # bench's fleet record).
+    fleet_launch = fleet_phase(greedy_caps, ref_caps)
+
     # The kernels line: one entry per kernel and storage dtype.  Launches:
-    # float32 from phases 4-7, 9, 10, 12 and 13, bfloat16 from phases 8
-    # and 11;
+    # float32 from phases 4-7, 9, 10, 12, 13 and 14, bfloat16 from phases
+    # 8, 11 and 14g;
     # times at B=8, the
     # greedy serving batch (8-slot bucket), every measured batch under
     # ``by_batch``.
@@ -2739,18 +3122,18 @@ def main() -> int:
         ("K1", "float32"): r_launch["fused_additive_attention"]
         + t_launch["fused_additive_attention"]
         + resume_launch["fused_additive_attention"]
-        + f_launch["fused_additive_attention"],
+        + f_launch["fused_additive_attention"] + fleet_launch["K1"],
         ("K2", "float32"): g_launch["fused_decode_cell"]
         + beam_launch["fused_decode_cell"]
         + t_launch["fused_decode_cell"] + e_launch
         + resume_launch["fused_decode_cell"]
-        + f_launch["fused_decode_cell"] + rest_launch,
+        + f_launch["fused_decode_cell"] + rest_launch + fleet_launch["K2"],
         ("K1", "bfloat16"): s_launch["fused_additive_attention/bfloat16"]
         + bt_launch["fused_additive_attention/bfloat16"]
         + bench_launch["fused_additive_attention"],
         ("K2", "bfloat16"): s_launch["fused_decode_cell/bfloat16"]
         + bt_launch["fused_decode_cell/bfloat16"]
-        + bench_launch["fused_decode_cell"],
+        + bench_launch["fused_decode_cell"] + fleet_launch["K2_bf16"],
     }
     meta = {
         "K1": ("fused_additive_attention", "cst_captioning_tpu_torch/csrc/"

@@ -75,18 +75,13 @@ HEADLINE_METRIC = {
     "data": "data_feed_captions_per_sec",
 }
 
-_SERVING_REST = "ROADMAP Queue 1 item 5 (serving, the rest)"
 #: Flags of the reference's bench whose parts the port has not yet:
 #: ``{dest: (the value that leaves them off, where they wait)}``.  Any
 #: other value is refused.
 REFUSED = {
-    "replicas": (1, _SERVING_REST),
-    "serve_kill_replica": (-1, _SERVING_REST),
-    "serve_trace": (0, _SERVING_REST),
-    "serve_blackbox": (None, _SERVING_REST),
-    "data_shards": (0, "ROADMAP Queue 1 item 7 (DP and CP)"),
-    "data_shard_id": (0, "ROADMAP Queue 1 item 7 (DP and CP)"),
-    "scan_unroll": (None, "ROADMAP Queue 1 item 8 (tuning)"),
+    "data_shards": (0, "ROADMAP Queue 1 item 5 (DP and CP)"),
+    "data_shard_id": (0, "ROADMAP Queue 1 item 5 (DP and CP)"),
+    "scan_unroll": (None, "ROADMAP Queue 1 item 4 (tuning)"),
 }
 
 
@@ -330,7 +325,10 @@ def bench_serving(args, device: torch.device) -> dict:
     rollout probe, so the untrained model ends its captions.  With
     ``--serve_cache_compare 1`` and a cache: an unmeasured rehearsal,
     then the cache-off twin and the cached probe at the same seed (the
-    same arrivals and mix), and the record carries ``cache_speedup``."""
+    same arrivals and mix), and the record carries ``cache_speedup``.
+    ``--replicas`` > 1 serves through a fleet whose replicas share the
+    one device (``replicas_share_device``); ``--serve_trace`` or
+    ``--serve_blackbox`` arm the request-lifecycle tracer."""
     model, _, _, _ = build(args, device)
     with torch.no_grad():
         model.logit.bias[0] += args.probe_eos_bias
@@ -341,16 +339,21 @@ def bench_serving(args, device: torch.device) -> dict:
               bucket_sizes=parse_buckets(args.serve_buckets), queue_limit=0,
               seed=777, stream=bool(args.serve_stream),
               cache_size=args.serve_cache, unique_videos=args.serve_unique,
-              zipf_alpha=args.serve_zipf, arrival_shape=args.arrival_shape,
-              arrival_trace=args.arrival_trace)
+              zipf_alpha=args.serve_zipf, replicas=args.replicas,
+              kill_replica=args.serve_kill_replica,
+              arrival_shape=args.arrival_shape,
+              arrival_trace=args.arrival_trace,
+              lifecycle=bool(args.serve_trace or args.serve_blackbox),
+              blackbox_path=args.serve_blackbox)
     shapes = list(DEFAULT_FEAT_SHAPES)
     if args.serve_cache_compare and args.serve_cache:
         # The process's first probe pays one-time costs (allocator,
         # handles) that would land on whichever measured run goes first.
         serving_probe(model, shapes, **{
             **kw, "cache_size": 0, "num_requests": 8,
-            "rate_hz": min(args.serve_rate, 100.0)})
-        twin = serving_probe(model, shapes, **{**kw, "cache_size": 0})
+            "rate_hz": min(args.serve_rate, 100.0), "blackbox_path": None})
+        twin = serving_probe(model, shapes, **{**kw, "cache_size": 0,
+                                               "blackbox_path": None})
         out = serving_probe(model, shapes, **kw)
         out["cache_off_captions_per_sec"] = twin["captions_per_sec"]
         out["cache_off_latency_p50_ms"] = twin["latency_p50_ms"]
@@ -360,6 +363,8 @@ def bench_serving(args, device: torch.device) -> dict:
     else:
         out = serving_probe(model, shapes, **kw)
     out["eos_bias"] = args.probe_eos_bias
+    if args.replicas > 1:
+        out["replicas_share_device"] = True
     return out
 
 
@@ -406,7 +411,11 @@ def resolved_config(args) -> dict:
                        ("serve_requests", "serve_rate", "serve_buckets",
                         "serve_beam", "serve_zipf", "serve_unique",
                         "arrival_shape", "serve_stream", "serve_cache",
-                        "serve_cache_compare")})
+                        "serve_cache_compare", "replicas",
+                        "serve_kill_replica")})
+        # A traced record and an untraced one are different protocols.
+        config["serve_trace"] = int(bool(args.serve_trace
+                                         or args.serve_blackbox))
     if args.stage == "data":
         config.update({k: getattr(args, k) for k in
                        ("loader_workers", "data_read_ms",
@@ -479,6 +488,21 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     g.add_argument("--serve_cache_compare", type=int, default=0,
                    help="1 = also run the cache-off twin at the same seed "
                         "and report cache_speedup (needs --serve_cache)")
+    g.add_argument("--replicas", type=positive_int, default=1,
+                   help="> 1: the same load through the fleet router over "
+                        "this many engine replicas sharing the device; the "
+                        "record's fleet.parity_ok holds every caption "
+                        "against a single engine's")
+    g.add_argument("--serve_kill_replica", type=int, default=-1,
+                   help="with --replicas N: hard-kill this replica once "
+                        "half the requests are submitted (-1: none)")
+    g.add_argument("--serve_trace", type=int, default=0,
+                   help="1 = arm the request-lifecycle tracer: the record "
+                        "gains its terminal accounting and the latency "
+                        "attribution")
+    g.add_argument("--serve_blackbox", default=None,
+                   help="write the flight recorder's blackbox.json here at "
+                        "the probe's end (implies --serve_trace 1)")
     g.add_argument("--arrival_shape", default="poisson",
                    choices=ARRIVAL_SHAPES)
     g.add_argument("--arrival_trace", default=None,

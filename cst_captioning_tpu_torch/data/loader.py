@@ -39,9 +39,16 @@ import numpy as np
 import torch
 
 from ..resilience.faults import FaultPlan, InjectedFault
+from ..utils.locksan import declare_order, named_lock
 from .dataset import SplitData
 
 log = logging.getLogger(__name__)
+
+#: The two locks are never nested (a worker draws under the plan lock,
+#: releases it, then deposits under the queue lock); the declared order
+#: makes a future nesting checkable (``utils/locksan.py``).
+LOCK_ORDER = ("data.loader.plan", "data.loader.queue")
+declare_order(*LOCK_ORDER)
 
 #: Errors the prefetcher treats as transient (retried with backoff before
 #: they reach the consumer): a flaky read surfaces as ``OSError``, and the
@@ -251,8 +258,8 @@ class _OrderedPrefetcher:
         self._retries = int(retries)
         self._backoff = float(retry_backoff_s)
         self._registry = registry
-        self._plan_lock = threading.Lock()   # the loader's draws
-        self._qlock = threading.Lock()       # _buffer and _next_emit
+        self._plan_lock = named_lock("data.loader.plan")   # the draws
+        self._qlock = named_lock("data.loader.queue")  # _buffer, _next_emit
         self._poisoned = False               # under _plan_lock
         # Keyed on ``BatchPlan.seq``; the stream may start past 0 (after
         # ``skip_batches``).

@@ -29,12 +29,13 @@ import platform
 import shutil
 import subprocess
 import sysconfig
-import threading
 import time
 from pathlib import Path
 from typing import Dict, List, Mapping, Optional, Sequence
 
 import numpy as np
+
+from ..utils.locksan import named_lock
 
 _DIR = Path(__file__).resolve().parent
 BUILD_DIR = _DIR.parent / "build"
@@ -47,7 +48,7 @@ GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 
 # One lock for building and loading both libraries: two threads racing a
 # first use never build twice or load a half-written library.
-_lock = threading.Lock()
+_lock = named_lock("native.build")
 _loaded: Dict[str, ctypes.CDLL] = {}
 #: Seconds g++ took for each library this process built (by source stem);
 #: a library found built already is not in it.

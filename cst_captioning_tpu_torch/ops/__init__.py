@@ -1,5 +1,6 @@
 """Decode-time ops of the port and the wrappers of its CUDA kernels."""
 
+from . import _cuda
 from .attention_kernel import fused_additive_attention
 from .decode_cell_kernel import fused_decode_cell
 
@@ -18,6 +19,13 @@ def launch_counts_by_dtype() -> dict:
     wrapper and storage dtype (float32, bfloat16)."""
     return {f"{fn.__name__}/{dtype}": n for fn in KERNEL_WRAPPERS
             for dtype, n in fn.launches_by_dtype.items()}
+
+
+def kernel_state() -> dict:
+    """Kernel-library builds and loads, and launches: what a flight
+    recorder's blackbox carries about the kernels."""
+    return {"library_events": _cuda.library_events(),
+            "launches": launch_counts()}
 
 
 def reset_launch_counts() -> None:

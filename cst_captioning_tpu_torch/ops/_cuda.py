@@ -18,12 +18,13 @@ import hashlib
 import os
 import shutil
 import subprocess
-import threading
 import time
 from pathlib import Path
 from typing import Callable, Dict, Iterable, Optional, Tuple
 
 import torch
+
+from ..utils.locksan import named_lock
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -50,7 +51,9 @@ SIGNATURES = {
                                           ctypes.POINTER(ctypes.c_int)]},
 }
 
-_lock = threading.Lock()
+# No reference counterpart (the reference compiles no kernel library): a
+# name of the port's own for the sanitizer.
+_lock = named_lock("ops.cuda.build")
 _loaded: Dict[Tuple[str, str], Callable[..., int]] = {}
 _compiles = 0       # libraries this process compiled
 

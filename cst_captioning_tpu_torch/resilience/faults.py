@@ -51,8 +51,12 @@ kind              keys on  effect at the injection site
                            result-cache lookup
 ================  =======  ==================================================
 
-The process (``@replica``) kinds parse as in the reference; the port has
-no site for them yet.
+``kind@replica=K`` on a serving kind targets fleet replica K
+(``serving/fleet.py``): the parsed plan never fires it; its
+:meth:`FaultPlan.for_replica` derivative hands replica K's engine a
+single-shot spec that fires at the first index probed.  The process
+kinds (``proc_*@replica=K``) parse as in the reference; the port has no
+site for them yet (they act on a process fleet's child processes).
 
 Firing is single-shot per (kind, index): a plan replayed after a rollback
 or a resume does not fire an index twice.  ``bind_state(path)`` persists
@@ -112,7 +116,8 @@ class InjectedFault(OSError):
 @dataclass(frozen=True)
 class FaultSpec:
     """One armed fault: ``kind`` fires at indices ``at .. at+times-1``;
-    ``replica`` is set for ``kind@replica=K`` (inert in this plan)."""
+    ``replica`` is set for ``kind@replica=K`` (inert in the plan that
+    parsed it).  ``at == ANY_INDEX`` covers every index, once."""
 
     kind: str
     at: int
@@ -120,13 +125,16 @@ class FaultSpec:
     replica: Optional[int] = None
 
     def covers(self, index: int) -> bool:
+        if self.at == ANY_INDEX:
+            return True
         return self.at <= index < self.at + self.times
 
     def __str__(self) -> str:
         if self.replica is not None:
             return f"{self.kind}@replica={self.replica}"
         tail = f"*{self.times}" if self.times != 1 else ""
-        return f"{self.kind}@{KINDS[self.kind]}={self.at}{tail}"
+        at = "any" if self.at == ANY_INDEX else self.at
+        return f"{self.kind}@{KINDS[self.kind]}={at}{tail}"
 
 
 @dataclass
@@ -140,6 +148,9 @@ class FaultPlan:
     # Prefetch workers fire ``loader_err`` from their own threads.
     _lock: threading.Lock = field(default_factory=threading.Lock,
                                   repr=False, compare=False)
+    # Memoized ``for_replica`` derivatives, by replica.
+    _derived: Dict[int, Optional["FaultPlan"]] = field(
+        default_factory=dict, repr=False, compare=False)
 
     def bind_metrics(self, registry) -> "FaultPlan":
         """Count firings into a ``telemetry.registry.MetricsRegistry``
@@ -205,6 +216,28 @@ class FaultPlan:
                                    int(m.group("times") or 1)))
         return cls(specs=specs) if specs else None
 
+    def for_replica(self, replica: int) -> Optional["FaultPlan"]:
+        """The plan replica ``replica``'s engine gets: every serving
+        ``kind@replica=K`` spec targeting it, as a single-shot spec that
+        fires at the engine's first probe of that kind.  Specs on other
+        axes are not forwarded (in a fleet the ``@req`` ordinal is per
+        engine, so ambiguous).  None when nothing targets the replica.
+        The metrics binding is inherited.  Memoized per replica: a
+        restarted replica's fresh engine gets the same derived plan, so a
+        replica-targeted fault does not fire again after the restart it
+        caused.  ``proc_*`` kinds are not materialized (no engine site)."""
+        k = int(replica)
+        if k in self._derived:
+            return self._derived[k]
+        specs = [FaultSpec(s.kind, ANY_INDEX) for s in self.specs
+                 if s.replica == k and s.kind not in PROC_KINDS]
+        derived: Optional[FaultPlan] = None
+        if specs:
+            derived = FaultPlan(specs=specs)
+            derived._metrics = self._metrics
+        self._derived[k] = derived
+        return derived
+
     def _consume(self, kind: str, key: Tuple[str, int]) -> None:
         self._consumed.add(key)
         if self._state_path is not None:
@@ -223,11 +256,14 @@ class FaultPlan:
 
     def fire(self, kind: str, index: int) -> bool:
         """True exactly once per (kind, index) a spec covers; replica-
-        targeted specs never fire here."""
+        targeted specs never fire here (only from a ``for_replica``
+        derivative, where they cover any index and consume the
+        ``ANY_INDEX`` key)."""
         for spec in self.specs:
             if spec.kind == kind and spec.replica is None \
                     and spec.covers(index):
-                key = (kind, int(index))
+                key = (kind, ANY_INDEX if spec.at == ANY_INDEX
+                       else int(index))
                 with self._lock:
                     if key in self._consumed:
                         return False

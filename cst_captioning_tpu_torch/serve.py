@@ -45,9 +45,20 @@ health payload once a second; ``--wedge_timeout`` exits 124 when the
 scheduler loop stops beating; ``--serve_telemetry_file`` gets the
 registry's counters at exit.
 
+Tracing (``telemetry/``): ``--serve_lifecycle`` (1, the default) records
+every request's lifecycle in a flight recorder of
+``--serve_lifecycle_events`` events; the ``stats`` op then carries the
+latency attribution, and ``--serve_blackbox`` (``blackbox.json``; empty:
+never) is written on the ``dump`` op, on an aborted drain and before an
+exit 124.  ``--trace_dir`` writes host spans (admission, each decode
+chunk) and the lifecycle as Chrome traces.  ``--result_file`` gets the
+exit stats, health and counters.
+
 Engine stats go to stderr as one JSON line.  Runs on the CUDA device
 unless ``--device cpu`` is given; without a GPU it exits with an error
-instead of running on the CPU.
+instead of running on the CPU.  The helpers here (``parse_args``,
+``build_backend``, ``engine_kwargs``, ``make_tracers``, ``serve_until_exit``)
+are shared with the fleet CLI, ``serve_fleet.py``.
 """
 
 from __future__ import annotations
@@ -56,6 +67,7 @@ import argparse
 import json
 import os
 import sys
+from typing import Optional
 
 import numpy as np
 import torch
@@ -68,12 +80,16 @@ from .eval import load_checkpoint_model
 from .models import CaptionModel
 from .resilience.exitcodes import EXIT_WEDGE, describe
 from .resilience.faults import FaultPlan, fault_plan_arg
+from .ops import kernel_state
+from .resilience.integrity import atomic_json_write
 from .resilience.preemption import PreemptionHandler
 from .serving.buckets import parse_buckets
 from .serving.cache import ResultCache
 from .serving.engine import ServingEngine, ServingUnrecoverable
 from .serving.server import CaptionServer
+from .telemetry.lifecycle import DEFAULT_EVENTS, LifecycleTracer
 from .telemetry.registry import MetricsRegistry
+from .telemetry.spans import SpanTracer
 from .utils.watchdog import ProgressWatchdog
 from .weights import init_random_, load_params_npz, model_from_flax
 
@@ -86,8 +102,20 @@ def nonneg_int(text: str) -> int:
     return value
 
 
-def parse_args(argv=None) -> argparse.Namespace:
-    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+def positive_int(text: str) -> int:
+    """argparse type of a count that must be at least 1."""
+    value = int(text)
+    if value < 1:
+        raise argparse.ArgumentTypeError(f"must be >= 1, got {value}")
+    return value
+
+
+def parse_args(argv=None, fleet: bool = False,
+               description: Optional[str] = None) -> argparse.Namespace:
+    """The serve CLI's flags; ``fleet`` adds ``serve_fleet.py``'s
+    ``--serve_replicas`` and ``--serve_restart_limit``."""
+    p = argparse.ArgumentParser(
+        description=description or __doc__.splitlines()[0])
     p.add_argument("--serve_demo", type=int, default=0)
     p.add_argument("--checkpoint_path", default="",
                    help="serve the best step of a train-CLI directory, or "
@@ -161,7 +189,40 @@ def parse_args(argv=None) -> argparse.Namespace:
                    type=fault_plan_arg,
                    help="drills only: e.g. 'serve_wedge@req=1,"
                         "serve_garble@req=3,admit_err@req=4,"
-                        "serve_cache@req=5'; default: $CST_FAULT_PLAN")
+                        "serve_cache@req=5' (a fleet: 'serve_wedge@"
+                        "replica=K'); default: $CST_FAULT_PLAN")
+    g = p.add_argument_group("tracing")
+    g.add_argument("--serve_lifecycle", type=int, default=1,
+                   help="1 (default): record every request's lifecycle in "
+                        "a bounded flight recorder; the stats op carries "
+                        "the latency attribution, and the blackbox is "
+                        "written on the dump op, an aborted drain and exit "
+                        "124.  0: every hook off")
+    g.add_argument("--serve_lifecycle_events", type=positive_int,
+                   default=DEFAULT_EVENTS,
+                   help="the flight recorder's capacity, events")
+    g.add_argument("--serve_blackbox", default="blackbox.json",
+                   help="where the flight recorder writes blackbox.json "
+                        "(empty: never)")
+    g.add_argument("--trace_dir", default=None,
+                   help="write host spans and the request lifecycle here "
+                        "as Chrome-trace JSON (Perfetto, chrome://tracing)")
+    g.add_argument("--result_file", default=None,
+                   help="write the exit stats, health and counters here "
+                        "(JSON)")
+    if fleet:
+        g = p.add_argument_group("fleet")
+        g.add_argument("--serve_replicas", type=positive_int,
+                       default=int(os.environ.get("CST_SERVE_REPLICAS")
+                                   or 2),
+                       help="engine replicas behind the fleet router; one "
+                            "result cache across them.  Default: "
+                            "$CST_SERVE_REPLICAS, else 2")
+        g.add_argument("--serve_restart_limit", type=nonneg_int, default=3,
+                       help="unplanned restarts (an exhausted ladder or a "
+                            "kill) each replica may take before it is "
+                            "removed; with none left the process exits "
+                            "124.  Rotations are free")
     p.add_argument("--device", default=None,
                    help="torch device; default cuda (raises without a GPU)")
     raw = sys.argv[1:] if argv is None else list(argv)
@@ -257,6 +318,88 @@ def warn_serve_deadline(opt) -> None:
               file=sys.stderr)
 
 
+def engine_kwargs(opt) -> dict:
+    """The ``ServingEngine`` arguments the serve flags set, less the
+    model, the fault plan, the result cache and the tracers."""
+    return dict(max_len=opt.max_length, beam_size=opt.beam_size,
+                length_norm=opt.length_norm, decode_chunk=opt.decode_chunk,
+                bucket_sizes=parse_buckets(opt.serve_buckets),
+                queue_limit=opt.serve_queue_limit,
+                deadline_ms=opt.serve_deadline_ms,
+                recover=bool(opt.serve_recover),
+                retry_limit=opt.serve_retry_limit,
+                rebuild_limit=opt.serve_rebuild_limit,
+                step_budget_ms=opt.serve_step_budget_ms)
+
+
+def make_tracers(opt, registry):
+    """-> (span tracer or None, the base lifecycle tracer or None), as
+    ``--trace_dir`` and ``--serve_lifecycle`` ask."""
+    tracer = SpanTracer(opt.trace_dir) if opt.trace_dir else None
+    lifecycle = (LifecycleTracer(opt.serve_lifecycle_events, tracer=tracer,
+                                 registry=registry)
+                 if opt.serve_lifecycle else None)
+    return tracer, lifecycle
+
+
+def serve_until_exit(name: str, opt, server: CaptionServer, registry,
+                     tracer, lifecycle, fatal) -> int:
+    """Run ``server`` on stdin or the socket until it exits, with the
+    heartbeat and wedge watchdog.  ``fatal`` (an exception class) is the
+    supervised-restart signal: the blackbox is written, then the exit
+    is 124.  At exit: the stats line on stderr (``<name>: {...}``), the
+    ``--result_file``, the telemetry snapshot, the trace's last part."""
+    if lifecycle is not None:
+        lifecycle.attach(
+            health=server.health_payload,
+            counters=lambda: registry.snapshot().get("counters"),
+            kernels=kernel_state)
+    watchdog = None
+    if opt.serve_heartbeat_file or opt.wedge_timeout > 0:
+        watchdog = ProgressWatchdog(
+            opt.wedge_timeout, describe=lambda: f"{name} scheduler loop",
+            heartbeat_path=opt.serve_heartbeat_file,
+            payload=lambda: {"serving": server.published_health(),
+                             **registry.heartbeat_payload()},
+            heartbeat_interval_s=1.0).start()
+        server.watchdog = watchdog
+    try:
+        try:
+            if opt.serve_port:
+                rc = server.run_socket(max(opt.serve_port, 0))
+            else:
+                rc = server.run_stdin()
+        except fatal as e:
+            print(f"{name}: UNRECOVERABLE: {e}; exiting {EXIT_WEDGE} "
+                  f"({describe(EXIT_WEDGE)})", file=sys.stderr)
+            if lifecycle is not None and opt.serve_blackbox:
+                # Written before the exit: the evidence outlives it.
+                try:
+                    lifecycle.dump(opt.serve_blackbox, reason="unrecoverable")
+                    print(f"{name}: blackbox written to "
+                          f"{opt.serve_blackbox}", file=sys.stderr)
+                except OSError as werr:
+                    print(f"{name}: blackbox write failed: {werr}",
+                          file=sys.stderr)
+            rc = EXIT_WEDGE
+    finally:
+        if watchdog is not None:
+            watchdog.stop()
+        stats = server.engine.stats()
+        print(f"{name}: " + json.dumps(stats), file=sys.stderr)
+        if opt.result_file:
+            atomic_json_write(opt.result_file,
+                              {"stats": stats,
+                               "health": server.health_payload(),
+                               "telemetry": registry.snapshot()},
+                              indent=2, default=str)
+        if opt.serve_telemetry_file:
+            registry.write_snapshot(opt.serve_telemetry_file)
+        if tracer is not None:
+            tracer.close()
+    return rc
+
+
 def main(argv=None) -> int:
     opt = parse_args(argv)
     warn_serve_deadline(opt)
@@ -266,56 +409,26 @@ def main(argv=None) -> int:
     if plan is not None:
         plan.bind_metrics(registry)
     model, vocab, feat_shapes, feats_for = build_backend(opt)
+    tracer, lifecycle = make_tracers(opt, registry)
     engine = ServingEngine(
-        model, feat_shapes, max_len=opt.max_length,
-        beam_size=opt.beam_size, length_norm=opt.length_norm,
-        decode_chunk=opt.decode_chunk,
-        bucket_sizes=parse_buckets(opt.serve_buckets),
-        queue_limit=opt.serve_queue_limit,
-        deadline_ms=opt.serve_deadline_ms, fault_plan=plan,
-        recover=bool(opt.serve_recover),
-        retry_limit=opt.serve_retry_limit,
-        rebuild_limit=opt.serve_rebuild_limit,
-        step_budget_ms=opt.serve_step_budget_ms,
+        model, feat_shapes, **engine_kwargs(opt), fault_plan=plan,
         result_cache=ResultCache(opt.serve_cache) if opt.serve_cache
         else None,
-        registry=registry)
+        registry=registry, tracer=tracer, lifecycle=lifecycle)
+    engine.warm()
     server = CaptionServer(engine, vocab, feats_for, handler=handler,
-                           registry=registry)
-    watchdog = None
-    if opt.serve_heartbeat_file or opt.wedge_timeout > 0:
-        watchdog = ProgressWatchdog(
-            opt.wedge_timeout, describe=lambda: "serving scheduler loop",
-            heartbeat_path=opt.serve_heartbeat_file,
-            payload=lambda: {"serving": server.published_health(),
-                             **registry.heartbeat_payload()},
-            heartbeat_interval_s=1.0).start()
-        server.watchdog = watchdog
+                           registry=registry, lifecycle=lifecycle,
+                           blackbox_path=opt.serve_blackbox or None)
     print(f"serve: ready on {model.device} (decode_kernel="
           f"{opt.decode_kernel}, compute {model.dtype}, beam "
           f"{engine.beam_size}, buckets {engine.buckets}, cache "
-          f"{opt.serve_cache}, recover {int(engine.recover)})",
-          file=sys.stderr, flush=True)
+          f"{opt.serve_cache}, recover {int(engine.recover)}, lifecycle "
+          f"{int(lifecycle is not None)})", file=sys.stderr, flush=True)
     if plan is not None:
         print(f"serve: CHAOS: fault plan armed: {plan}", file=sys.stderr,
               flush=True)
-    try:
-        try:
-            if opt.serve_port:
-                rc = server.run_socket(max(opt.serve_port, 0))
-            else:
-                rc = server.run_stdin()
-        except ServingUnrecoverable as e:
-            print(f"serve: UNRECOVERABLE: {e}; exiting {EXIT_WEDGE} "
-                  f"({describe(EXIT_WEDGE)})", file=sys.stderr)
-            rc = EXIT_WEDGE
-    finally:
-        if watchdog is not None:
-            watchdog.stop()
-        print("serve: " + json.dumps(engine.stats()), file=sys.stderr)
-        if opt.serve_telemetry_file:
-            registry.write_snapshot(opt.serve_telemetry_file)
-    return rc
+    return serve_until_exit("serve", opt, server, registry, tracer,
+                            lifecycle, ServingUnrecoverable)
 
 
 if __name__ == "__main__":

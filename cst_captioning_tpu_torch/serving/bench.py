@@ -18,8 +18,17 @@ reference's, draw for draw.  ``stream`` streams every request and checks
 that each one's chunks concatenate to its caption; ``cache_size`` arms
 the exact-result cache and checks every hit against the first decoded
 caption of its video.  The warm-up engines run without the cache, so
-the probe's first request of each video is a miss.  The reference's
-fleet and lifecycle tracing are not ported.
+the probe's first request of each video is a miss.
+
+``replicas`` > 1 drives the same load through a ``FleetRouter`` over that
+many engines on the model's one device (they share it), with one result
+cache; ``kill_replica`` hard-kills that replica once half the requests
+are submitted.  The ``fleet`` record holds every caption against a clean
+single engine's decode of the same videos (``parity_ok``).
+``lifecycle`` (or ``blackbox_path``) arms the request-lifecycle tracer on
+the probe's clock: the ``lifecycle`` record carries its terminal
+accounting, ``attribution`` the latency components reconciled against
+the engine's latencies, and the blackbox is written at the end.
 """
 
 from __future__ import annotations
@@ -30,10 +39,12 @@ from typing import Any, Callable, Dict, Optional, Sequence
 
 import numpy as np
 
-from ..ops import _cuda
+from ..ops import _cuda, kernel_state
+from ..telemetry.lifecycle import LifecycleTracer
 from .buckets import DEFAULT_BUCKETS
 from .cache import ResultCache
 from .engine import ServingEngine, _trim_eos
+from .fleet import FleetRouter
 
 
 def poisson_arrivals(num_requests: int, rate_hz: float,
@@ -169,16 +180,21 @@ def serving_probe(model, feat_shapes: Sequence, *, num_requests: int = 24,
                   queue_limit: int = 0, seed: int = 0,
                   stream: bool = False, cache_size: int = 0,
                   unique_videos: Optional[int] = None,
-                  zipf_alpha: float = 0.0, arrival_shape: str = "poisson",
+                  zipf_alpha: float = 0.0, replicas: int = 1,
+                  kill_replica: int = -1, arrival_shape: str = "poisson",
                   arrival_trace: Optional[str] = None,
+                  lifecycle: bool = False,
+                  blackbox_path: Optional[str] = None,
                   clock: Callable[[], float] = time.perf_counter
                   ) -> Dict[str, Any]:
-    """Drive one engine through a seeded open-loop load; -> metrics.
+    """Drive one engine (or a fleet of ``replicas``) through a seeded
+    open-loop load; -> metrics.
 
     Raises ``RuntimeError`` if a kernel library is built or loaded while
-    the clock runs (the warm-up must have paid for every one), if a
-    streamed request's chunks do not concatenate to its caption, or if a
-    cache hit differs from its video's decoded caption.
+    the clock runs (the warm-up must have paid for every one, and a
+    restarted replica loads none), if a streamed request's chunks do not
+    concatenate to its caption, or if a cache hit differs from its
+    video's decoded caption.
     """
     n = int(num_requests)
     uniq = n if unique_videos is None else max(1, min(int(unique_videos), n))
@@ -189,19 +205,35 @@ def serving_probe(model, feat_shapes: Sequence, *, num_requests: int = 24,
               for s in feat_shapes] for _ in range(uniq)]
     video_of = zipfian_mix(n, uniq, zipf_alpha, seed + 2)
 
-    def make_engine(cache=None) -> ServingEngine:
+    fleet_n = max(1, int(replicas))
+    cache = ResultCache(int(cache_size)) if cache_size else None
+    # On the probe's clock, so attribution reconciles with its latencies.
+    recorder = (LifecycleTracer(clock=clock)
+                if lifecycle or blackbox_path else None)
+
+    def make_engine(cache=None, lc=None) -> ServingEngine:
         return ServingEngine(
             model, feat_shapes, max_len=max_len, beam_size=beam_size,
             length_norm=length_norm, decode_chunk=decode_chunk,
             bucket_sizes=bucket_sizes, queue_limit=queue_limit,
-            result_cache=cache, clock=clock)
+            result_cache=cache, lifecycle=lc, clock=clock)
+
+    def replica_engine(k: int) -> ServingEngine:
+        return make_engine(cache, recorder.for_replica(k)
+                           if recorder is not None else None)
 
     t_warm = clock()
     warmed = warm_buckets(make_engine, feats)
     warm_s = clock() - t_warm
-    engine = make_engine(ResultCache(int(cache_size)) if cache_size
-                         else None)
+    if fleet_n > 1:
+        engine = FleetRouter(replica_engine, fleet_n, lifecycle=recorder,
+                             clock=clock)
+    else:
+        engine = make_engine(cache, recorder)
+    engine.warm()
     libraries = _cuda.loaded_libraries()
+    kill_at = n // 2 if fleet_n > 1 and kill_replica >= 0 else None
+    killed = False
 
     t0 = clock()
     submitted = 0
@@ -219,6 +251,11 @@ def serving_probe(model, feat_shapes: Sequence, *, num_requests: int = 24,
                                  stream=stream):
                 shed += 1
             submitted += 1
+        if kill_at is not None and not killed and submitted >= kill_at:
+            # One replica dies with residents aboard; they re-queue and
+            # the replica restarts warm.
+            engine.kill_replica(int(kill_replica) % fleet_n)
+            killed = True
         for comp in engine.step():
             latencies[comp.request_id] = ((comp.done_at - t0)
                                           - arrivals[comp.request_id])
@@ -292,6 +329,44 @@ def serving_probe(model, feat_shapes: Sequence, *, num_requests: int = 24,
             "parity_mismatches": 0,
         })
 
+    fleet_out: Dict[str, Any] = {"enabled": fleet_n > 1}
+    if fleet_n > 1:
+        # Every caption against a clean single engine's decode of the
+        # same videos (no result cache: a hit would prove nothing).
+        ref_engine = make_engine()
+        for v in range(uniq):
+            ref_engine.submit(("ref", v), feats[v])
+        ref = {int(c.request_id[1]): np.asarray(c.tokens)
+               for c in ref_engine.run_until_idle()}
+        mismatches = sum(
+            1 for rid, row in tokens.items()
+            if not np.array_equal(row, ref.get(int(video_of[rid]))))
+        fleet_out.update({
+            "replicas": fleet_n,
+            **stats["fleet"],
+            "killed_replica": (int(kill_replica) % fleet_n if killed
+                               else None),
+            "answered": len(latencies) + shed + dropped,
+            "dropped": dropped,
+            "parity_ok": mismatches == 0,
+            "parity_mismatches": mismatches,
+            "per_replica": stats["per_replica"],
+        })
+
+    lifecycle_out: Dict[str, Any] = {"enabled": recorder is not None}
+    attribution: Optional[Dict[str, Any]] = None
+    if recorder is not None:
+        attribution = recorder.attribution_report()
+        lifecycle_out.update({
+            "events": recorder.emitted(),
+            "retained": len(recorder.events()),
+            **recorder.accounting(),
+        })
+        if blackbox_path:
+            recorder.attach(health=engine.health, kernels=kernel_state)
+            recorder.dump(blackbox_path, reason="probe_end")
+            lifecycle_out["blackbox"] = str(blackbox_path)
+
     lat_ms = np.asarray(sorted(latencies.values())) * 1e3
     pct = (lambda q: round(float(np.percentile(lat_ms, q)), 3)  # noqa: E731
            if lat_ms.size else None)
@@ -325,6 +400,10 @@ def serving_probe(model, feat_shapes: Sequence, *, num_requests: int = 24,
         "max_len": int(max_len),
         "stream": stream_out,
         "cache": cache_out,
+        "lifecycle": lifecycle_out,
+        **({"attribution": attribution} if attribution is not None
+           else {}),
+        **({"fleet": fleet_out} if fleet_n > 1 else {}),
         # All 0 on a healthy probe without a fault plan.
         **engine.recovery_counters(),
     }

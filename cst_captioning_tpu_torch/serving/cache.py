@@ -21,12 +21,12 @@ cache may be shared by several engines.
 from __future__ import annotations
 
 import hashlib
-import threading
 from collections import OrderedDict
 from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ..utils.locksan import named_lock
 from ..weights import to_flax
 
 
@@ -74,7 +74,7 @@ class ResultCache:
 
     def __init__(self, capacity: int):
         self.capacity = int(capacity)
-        self._lock = threading.Lock()
+        self._lock = named_lock("serving.result_cache")
         self._entries: "OrderedDict[Tuple, np.ndarray]" = OrderedDict()
 
     def get(self, key: Tuple) -> Optional[np.ndarray]:

@@ -60,6 +60,19 @@ Latency:
   back at harvest.  A failing lookup (``serve_cache``) is counted, marks
   health degraded, and the request decodes fresh.
 
+Tracing (``telemetry/``): ``tracer=`` (a ``SpanTracer``) times admission
+and each decode chunk as host spans; ``lifecycle=`` (a ``LifecycleTracer``
+or a fleet replica's view of one) receives every request's lifecycle
+events, stamped from the engine's clock.  Disarmed, each hook costs one
+is-None check.
+
+The fleet surface (``serving/fleet.py``): ``evacuate`` strips the engine
+of its queued (and resident) requests and ``requeue`` adopts one evacuated
+elsewhere, keeping its first arrival clock and what is left of its
+deadline.  An evacuated resident's device rows are abandoned in place; the
+caching allocator reuses memory in stream order, so nothing a launched
+chunk still writes is handed out again.
+
 The engine is single-owner: ``submit``/``step``/``drain`` are called from
 one thread (the server's scheduler loop).  Deadlines, TTFT and chunk
 gaps read the injected ``clock``.
@@ -77,11 +90,13 @@ import numpy as np
 import torch
 
 from ..ops import _cuda, launch_counts
+from ..ops import attention_kernel, decode_cell_kernel
 from ..ops.beam import NEG_INF, _expand_to_beams, beam_step, rank_beams
 from ..ops.sampling import finished_mask, make_decode_step
 from ..resilience.faults import InjectedFault
 from ..resilience.garble import (GarbledChunk, garbled_decode_slots,
                                  health_status)
+from ..telemetry.spans import trace_span
 from .buckets import DEFAULT_BUCKETS, config_key, pick_bucket
 from .cache import ResultCache, feature_fingerprint, params_fingerprint
 
@@ -211,6 +226,8 @@ class ServingEngine:
     ``result_cache`` arms the exact-result cache (None: every request
     decodes, and nothing counts as bypass).  ``registry`` (a
     ``telemetry.registry.MetricsRegistry``) gets :data:`COUNTERS`.
+    ``tracer`` and ``lifecycle`` arm the span and request-lifecycle
+    tracers (module docstring).
     """
 
     def __init__(self, model, feat_shapes: Sequence[Tuple[int, int]], *,
@@ -225,7 +242,7 @@ class ServingEngine:
                  rebuild_limit: int = 2,
                  step_budget_ms: float = 0.0,
                  result_cache: Optional[ResultCache] = None,
-                 registry=None,
+                 registry=None, tracer=None, lifecycle=None,
                  clock: Callable[[], float] = time.monotonic):
         self.model = model
         self.device = model.device
@@ -249,6 +266,8 @@ class ServingEngine:
         self.rebuild_limit = max(0, int(rebuild_limit))
         self.step_budget_ms = float(step_budget_ms or 0.0)
         self._registry = registry
+        self._tracer = tracer
+        self._lifecycle = lifecycle
         self.clock = clock
         self._queue: deque = deque()
         self._residents: List[Optional[_Resident]] = []
@@ -421,14 +440,18 @@ class ServingEngine:
     def submit(self, request_id, feats: Sequence[np.ndarray],
                meta: Optional[dict] = None,
                deadline_ms: Optional[float] = None,
-               stream: bool = False, no_cache: bool = False) -> bool:
+               stream: bool = False, no_cache: bool = False,
+               _requeued: bool = False,
+               _arrival: Optional[float] = None) -> bool:
         """Queue one request.  Returns False (sheds) when the bounded
         queue is full: the engine's backpressure signal.  ``deadline_ms``
         overrides the engine's default (None: the default; 0: none);
         ``stream`` emits :class:`StreamChunk` records
         (``pop_stream_chunks``); ``no_cache`` skips the result cache
         (counted as bypass).  A cache hit completes here and is returned
-        by the next ``step``."""
+        by the next ``step``.  ``_requeued``/``_arrival`` are
+        ``requeue``'s: the lifecycle records a re-entry, and the request
+        keeps its first arrival clock."""
         self._submitted += 1
         index = self._submitted - 1        # submission ordinal (@req=N)
         self._inc("serve_requests")
@@ -438,7 +461,19 @@ class ServingEngine:
             raise ValueError(
                 f"request {request_id!r} feature shapes {shapes} do not "
                 f"match the engine's geometry {self._feat_shapes}")
-        arrival = self.clock()
+        arrival = self.clock() if _arrival is None else float(_arrival)
+        if self._lifecycle is not None:
+            # "received" at the arrival clock; a re-entry after a replica
+            # kill or rotation is "requeued", now.  A front end's trace
+            # context (meta["trace"]) rides along as trace_id.
+            tr = (meta or {}).get("trace")
+            attrs = ({"trace_id": tr.get("id")}
+                     if isinstance(tr, dict) else {})
+            if _requeued:
+                self._lifecycle.emit("requeued", request_id, **attrs)
+            else:
+                self._lifecycle.emit("received", request_id, ts=arrival,
+                                     **attrs)
         # The result cache, before the bounded queue: a hit takes no
         # slot, no queue depth and no decode.
         cache_key = None
@@ -475,6 +510,10 @@ class ServingEngine:
         if self.queue_limit and len(self._queue) >= self.queue_limit:
             self._shed += 1
             self._inc("serve_shed")
+            if self._lifecycle is not None:
+                # Terminal for a lone engine; a fleet replica's view drops
+                # it (the router may still place the request).
+                self._lifecycle.emit("shed", request_id, where="queue")
             self._update_gauges()
             return False
         # A miss is counted at harvest, beside its write-back: a queued
@@ -486,6 +525,9 @@ class ServingEngine:
                                    deadline=deadline, stream=bool(stream),
                                    no_cache=bool(no_cache),
                                    cache_key=cache_key))
+        if self._lifecycle is not None:
+            self._lifecycle.emit("queued", request_id,
+                                 depth=len(self._queue))
         self._update_gauges()
         return True
 
@@ -516,6 +558,11 @@ class ServingEngine:
         self._inc("serve_completed")
         self._latencies.append(comp.latency_s)
         self._observe("serve_request_latency_ms", comp.latency_s * 1e3)
+        if self._lifecycle is not None:
+            self._lifecycle.emit("cache_hit", request_id, ts=now)
+            self._lifecycle.emit("completed", request_id, ts=now,
+                                 latency_ms=round(comp.latency_s * 1e3, 3),
+                                 cached=True)
 
     @property
     def idle(self) -> bool:
@@ -559,11 +606,55 @@ class ServingEngine:
         """Raw request latencies (seconds) of the retained window."""
         return list(self._latencies)
 
+    def stream_windows_s(self) -> Tuple[List[float], List[float]]:
+        """Raw (TTFT, chunk gap) windows, seconds: a fleet computes its
+        percentiles over the replicas' samples."""
+        return list(self._ttft), list(self._gaps)
+
+    def evacuate(self, include_residents: bool = True
+                 ) -> Tuple[List[Completion], List[Request]]:
+        """Strip the engine of what it still owes: the pending cache-hit
+        completions (finished; returned for the caller's responses) and
+        the queued requests, plus the residents when
+        ``include_residents``, returned for re-routing.  A resident's
+        device rows are abandoned; another engine decodes it again from
+        step 0 to the same caption.  The fleet calls this with residents
+        on a replica it kills or restarts, without on one it rotates."""
+        done = list(self._hits)
+        self._hits.clear()
+        reqs: List[Request] = list(self._queue)
+        self._queue.clear()
+        if include_residents:
+            for slot, res in enumerate(self._residents):
+                if res is not None:
+                    reqs.append(res.request)
+                    self._residents[slot] = None
+        self._update_gauges()
+        return done, reqs
+
+    def requeue(self, req: Request) -> bool:
+        """Adopt a request evacuated from another engine: a fresh local
+        submission (a new ``@req`` ordinal) that keeps the first arrival
+        clock, so its latency counts from its first submission, and what
+        is left of its absolute deadline (a lapsed one expires at
+        admission)."""
+        if req.deadline is not None:
+            remaining_ms = max((req.deadline - self.clock()) * 1e3, 1e-3)
+        else:
+            remaining_ms = 0.0
+        return self.submit(req.request_id, req.feats, meta=req.meta,
+                           deadline_ms=remaining_ms, stream=req.stream,
+                           no_cache=req.no_cache,
+                           _requeued=True, _arrival=req.arrival)
+
     # -- deadlines ---------------------------------------------------------
 
     def _drop(self, req: Request, reason: str, where: str) -> None:
         self._dropped.append(Dropped(req.request_id, reason, where,
                                      deadline=req.deadline, meta=req.meta))
+        if self._lifecycle is not None:
+            self._lifecycle.emit("dropped", req.request_id,
+                                 reason=reason, where=where)
         if reason == "expired":
             self._expired += 1
             self._inc("serve_expired")
@@ -656,9 +747,10 @@ class ServingEngine:
                         self._plan.fire("admit_err", req.index):
                     raise InjectedFault(
                         f"injected admit_err at request {req.index}")
-                t0 = time.perf_counter()
-                self._admit(slot, req)
-                admit_s = time.perf_counter() - t0
+                with trace_span(self._tracer, "serve.admit"):
+                    t0 = time.perf_counter()
+                    self._admit(slot, req)
+                    admit_s = time.perf_counter() - t0
             except Exception as e:
                 # Without the ladder only an injected fault (raised before
                 # any write) is absorbed.
@@ -685,6 +777,11 @@ class ServingEngine:
                                               admit_at=self.clock())
             self._inc("serve_admitted")
             self._observe("serve_admit_ms", admit_s * 1e3)
+            if self._lifecycle is not None:
+                # admit_ms lets attribution carve the encoder pass out of
+                # the queue wait.
+                self._lifecycle.emit("admitted", req.request_id, slot=slot,
+                                     admit_ms=round(admit_s * 1e3, 3))
 
     def _dispatch_chunk(self):
         """Run ONE chunk and fetch (fin, toks, pars), with the fault hooks
@@ -699,15 +796,17 @@ class ServingEngine:
                     raise InjectedFault(
                         f"injected serve_wedge while request "
                         f"{res.request.index} resident in slot {slot}")
-        t0 = time.perf_counter()
-        self._chunk_dispatches += 1
-        new, toks_d, pars_d = (self._run_greedy_chunk() if k == 1
-                               else self._run_beam_chunk())
-        # One fetch per chunk (it waits for the device).
-        fin = finished_mask(new["finished"]).cpu().numpy()
-        toks = toks_d.cpu().numpy().astype(np.int32)
-        pars = None if pars_d is None else pars_d.cpu().numpy()
-        chunk_s = time.perf_counter() - t0
+        # A host span: the launches and the fetch's wait on the device.
+        with trace_span(self._tracer, "serve.decode_chunk"):
+            t0 = time.perf_counter()
+            self._chunk_dispatches += 1
+            new, toks_d, pars_d = (self._run_greedy_chunk() if k == 1
+                                   else self._run_beam_chunk())
+            # One fetch per chunk (it waits for the device).
+            fin = finished_mask(new["finished"]).cpu().numpy()
+            toks = toks_d.cpu().numpy().astype(np.int32)
+            pars = None if pars_d is None else pars_d.cpu().numpy()
+            chunk_s = time.perf_counter() - t0
         if self._plan is not None:
             fired = [slot for slot, res in live
                      if self._plan.fire("serve_garble", res.request.index)]
@@ -764,6 +863,13 @@ class ServingEngine:
                 attempts += 1
                 self._inc("serve_chunk_retries")
                 self._chunk_retries += 1
+                if self._lifecycle is not None:
+                    # Every resident aboard pays the failed dispatch.
+                    for res in self._residents:
+                        if res is not None:
+                            self._lifecycle.emit(
+                                "retry", res.request.request_id,
+                                attempt=attempts, error=type(e).__name__)
                 log.warning("serving chunk failed (%s); re-run %d/%d", e,
                             attempts, max(self.retry_limit, 1))
                 if attempts <= self.retry_limit:
@@ -803,6 +909,9 @@ class ServingEngine:
                         [res.prefix, prior[len(res.prefix):]], axis=0)
             res.toks, res.pars, res.steps = [], [], 0
             self._admit(slot, res.request)
+            if self._lifecycle is not None:
+                self._lifecycle.emit("rebuild", res.request.request_id,
+                                     slot=slot, rebuild=self._rebuilds)
         delta = _cuda.library_events() - events0
         if delta:
             self._rebuild_recompiles += delta
@@ -835,6 +944,9 @@ class ServingEngine:
             if pars is not None:
                 res.pars.append(pars[slot])
             res.steps += self.chunk
+            if self._lifecycle is not None:
+                self._lifecycle.emit("decode_chunk", res.request.request_id,
+                                     k=res.steps // self.chunk, slot=slot)
             if res.request.stream and k == 1:
                 # Greedy tokens are final once fetched; beam emits its
                 # one chunk in _harvest, after the backtrack.
@@ -946,6 +1058,10 @@ class ServingEngine:
         if res.request.deadline is not None:
             self._observe("serve_deadline_slack_ms",
                           (res.request.deadline - now) * 1e3)
+        if self._lifecycle is not None:
+            self._lifecycle.emit("completed", comp.request_id, ts=now,
+                                 latency_ms=round(comp.latency_s * 1e3, 3),
+                                 slot=slot, decode_steps=comp.decode_steps)
         return comp
 
     def drain(self, abort: Optional[Callable[[], bool]] = None
@@ -959,6 +1075,11 @@ class ServingEngine:
         if rejected:
             self._rejected += len(rejected)
             self._inc("serve_rejected_drain", len(rejected))
+            if self._lifecycle is not None:
+                for req in rejected:
+                    self._lifecycle.emit("dropped", req.request_id,
+                                         reason="rejected_draining",
+                                         where="drain")
         done: List[Completion] = list(self._hits)
         self._hits.clear()
         while any(r is not None for r in self._residents):
@@ -978,14 +1099,39 @@ class ServingEngine:
             done.extend(self.step())
         return done
 
-    # -- stats and health --------------------------------------------------
+    # -- warm-up, stats and health ------------------------------------------
+
+    def kernel_functions(self) -> List[Tuple[str, str]]:
+        """The (library, function) pairs of ``ops/_cuda.py`` this engine's
+        decode path launches: K2's launcher for ``decode_kernel="fused"``,
+        K1's for the reference cell with the attention kernel."""
+        m = self.model
+        if m.decode_kernel == "fused":
+            return [("decode_cell", decode_cell_kernel.LAUNCHERS[m.dtype])]
+        if getattr(getattr(m.cell, "attn", None), "use_kernel", False):
+            return [("attention", attention_kernel.LAUNCHERS[m.dtype])]
+        return []
+
+    def warm(self) -> Dict[str, Any]:
+        """Build (where not built yet) and load the kernel library of this
+        engine's configuration, so no request pays for it; a second
+        engine's, or a restarted replica's, warm-up loads nothing.  There
+        are no programs to compile.  -> ``stats()`` plus ``compiles``, the
+        kernel-library builds and loads this call made (0 once loaded;
+        0 on the CPU, where the plain versions run)."""
+        events0 = _cuda.library_events()
+        if self.device.type == "cuda":
+            for lib, fn in self.kernel_functions():
+                _cuda.load(lib, fn)
+        return {**self.stats(),
+                "compiles": _cuda.library_events() - events0}
 
     def stats(self) -> Dict[str, Any]:
         lat = np.asarray(self._latencies, np.float64) * 1e3
         pct = (lambda q: float(np.percentile(lat, q)) if lat.size else None)
         steps = self._chunk_dispatches * self.chunk
         now = launch_counts()
-        return {
+        out = {
             "slots": self._slots_n,
             "buckets": list(self.buckets),
             "beam_size": self.beam_size,
@@ -1013,6 +1159,12 @@ class ServingEngine:
             **self.cache_counters(),
             **self.stream_stats(),
         }
+        # A lone engine holds the base tracer and reports attribution; a
+        # fleet replica holds a labeled view, and the router reports it.
+        if self._lifecycle is not None and \
+                hasattr(self._lifecycle, "attribution_report"):
+            out["attribution"] = self._lifecycle.attribution_report()
+        return out
 
     def cache_counters(self) -> Dict[str, Any]:
         """The result cache's counters (stats, the bench probe)."""

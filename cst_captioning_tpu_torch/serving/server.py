@@ -9,7 +9,9 @@ Protocol, one JSON object per line either way::
                         "deadline_ms": <this request's deadline>,
                         "no_cache": true (skip the result cache),
                         "idem": "<key>" (a string, echoed on the terminal
-                        response), "trace": {...} (accepted, no effect)
+                        response), "trace": {"id", ...} (a front end's
+                        trace context, echoed as the lifecycle events'
+                        trace_id)
     response: {"id", "video_id", "caption", "latency_ms", "decode_steps"}
               (a cache hit adds "cached": true; a streamed final adds
               "stream": true, "final": true, "chunks": N, "ttft_ms")
@@ -19,15 +21,28 @@ Protocol, one JSON object per line either way::
               joined by spaces are the caption
     health:   {"op": "health", "status": "ok"|"degraded"|"draining",
                "queue_depth", "residents", "recovery": {...}, ...}
-    stats:    {"op": "stats", ...the engine's stats()...}
+    stats:    {"op": "stats", ...the engine's (or fleet's) stats()...},
+              with the latency attribution when lifecycle tracing is on
     ping:     {"op": "ping", "seq", "t0", "mono", "wall", "pid"}
-    dump:     {"op": "dump", "error": "no_recorder"} (no flight recorder)
+    dump:     {"op": "dump"} -> the flight recorder writes blackbox.json
+              (atomically) and answers {"op": "dump", "path", "events",
+              "emitted"}; "path" in the request overrides the configured
+              one.  Errors: "no_recorder" (tracing off), "no_path"
     reject:   {"id", "error": "shed" | "bad_request" | "unknown_video"
                | "unknown_op" | "rejected_draining" | "expired"
                | "admit_failed", ...}; "expired" carries "where"
-              ("queued" | "resident"), and a deadline shed adds "why":
-              "deadline_unmeetable".  A streamed request's terminal line
+              ("queued" | "resident" | "fleet"), and a deadline shed adds
+              "why": "deadline_unmeetable"; a fleet's "admit_failed" says
+              "where": "fleet".  A streamed request's terminal line
               carries "stream": true, "final": true whatever it says.
+
+``engine`` is one ``ServingEngine`` or a ``serving.fleet.FleetRouter``:
+both speak the same scheduler surface.  ``health_source`` replaces
+``engine.health`` as the health reply's body (the fleet's worst-of view
+with every replica's detail); the server folds its own draining state on
+top.  ``lifecycle`` (the base ``LifecycleTracer``) gets the terminal
+``responded`` events, and the flight recorder is written to
+``blackbox_path`` on the ``dump`` op and on an aborted drain.
 
 Reader threads (stdin, or one per socket connection) only put ``(line,
 respond)`` into an inbox; the scheduler loop alone touches the engine.
@@ -64,9 +79,32 @@ import numpy as np
 
 from ..resilience.exitcodes import EXIT_OK, EXIT_PREEMPTED, EXIT_SIGTERM
 from ..resilience.garble import health_status
+from ..utils.locksan import LockOrderViolation, declare_order, named_lock
 from .engine import Completion, Dropped, ServingEngine, StreamChunk
 
 log = logging.getLogger(__name__)
+
+#: Declared acquisition order (``utils/locksan.py``): ``_write`` holds the
+#: write lock while a socket's ``respond`` takes its connection lock.
+LOCK_ORDER = ("serving.server.write", "serving.server.conn")
+declare_order(*LOCK_ORDER)
+
+_warned_stream_legacy = False
+
+
+def warn_stream_legacy_scan() -> None:
+    """Once per process, on the first ``stream`` op an engine built with
+    ``--decode_chunk 0`` gets: the whole caption is one chunk, so the
+    stream is one terminal chunk after the whole decode."""
+    global _warned_stream_legacy
+    if _warned_stream_legacy:
+        return
+    _warned_stream_legacy = True
+    print("warning: {\"op\": \"stream\"} with --decode_chunk 0 (one "
+          "full-length decode loop) emits everything at once; streaming "
+          "degenerates to one terminal chunk; pass a chunked "
+          "--decode_chunk (e.g. 8) to stream tokens per chunk",
+          file=sys.stderr)
 
 IDLE_SLEEP_S = 0.002     # scheduler nap when idle with nothing to read
 
@@ -78,12 +116,15 @@ class CaptionServer:
     None for an unknown id.  ``handler`` is anything with ``requested``
     and ``signal_count`` attributes (a ``PreemptionHandler`` or a test
     stub).  ``watchdog`` (optional) is beaten once per loop iteration;
-    ``registry`` (optional) counts bad lines and queries.  The loop naps
-    :data:`IDLE_SLEEP_S` when it is idle with nothing to read."""
+    ``registry`` (optional) counts bad lines and queries;
+    ``health_source``, ``lifecycle`` and ``blackbox_path`` as in the
+    module docstring.  The loop naps :data:`IDLE_SLEEP_S` when it is idle
+    with nothing to read."""
 
     def __init__(self, engine: ServingEngine, vocab,
                  feats_for: Callable[[Any], Optional[list]], *,
-                 handler=None, out=None, watchdog=None, registry=None):
+                 handler=None, out=None, watchdog=None, registry=None,
+                 health_source=None, lifecycle=None, blackbox_path=None):
         self.engine = engine
         self.vocab = vocab
         self.feats_for = feats_for
@@ -91,13 +132,16 @@ class CaptionServer:
         self.out = out if out is not None else sys.stdout
         self.watchdog = watchdog
         self.registry = registry
+        self._health_source = health_source
+        self._lifecycle = lifecycle
+        self.blackbox_path = blackbox_path
         if registry is not None:
             registry.declare("serve_bad_lines", "serve_health_queries",
                              "serve_stats_queries", "serve_dump_queries",
                              "serve_ping_queries")
         self._inbox: "queue.Queue" = queue.Queue()
         self._eof = threading.Event()
-        self._write_lock = threading.Lock()
+        self._write_lock = named_lock("serving.server.write")
         self._draining = False
         #: The socket front end's bound port; None until it binds.
         self.bound_port: Optional[int] = None
@@ -140,6 +184,8 @@ class CaptionServer:
         if meta.get("idem") is not None:
             obj["idem"] = meta["idem"]
         self._write(meta.get("respond", self._stdout_respond), obj)
+        if self._lifecycle is not None:
+            self._lifecycle.emit("responded", comp.request_id, status="ok")
 
     def _respond_stream_chunk(self, chunk: StreamChunk) -> None:
         meta = chunk.meta or {}
@@ -165,13 +211,17 @@ class CaptionServer:
             {"id": meta.get("id"), "video_id": meta.get("video_id"),
              "error": ("admit_failed" if drop.reason == "admit_failed"
                        else "expired")}, meta.get("stream"))
-        if drop.reason in ("expired", "deadline_shed"):
-            obj["where"] = drop.where              # "queued" | "resident"
+        if drop.reason in ("expired", "deadline_shed") or (
+                drop.reason == "admit_failed" and drop.where == "fleet"):
+            obj["where"] = drop.where      # "queued" | "resident" | "fleet"
         if drop.reason == "deadline_shed":
             obj["why"] = "deadline_unmeetable"
         if meta.get("idem") is not None:
             obj["idem"] = meta["idem"]
         self._write(meta.get("respond", self._stdout_respond), obj)
+        if self._lifecycle is not None:
+            self._lifecycle.emit("responded", drop.request_id,
+                                 status=obj["error"])
 
     def _respond_dropped_all(self) -> bool:
         drops = self.engine.pop_dropped()
@@ -186,13 +236,18 @@ class CaptionServer:
     # -- the health plane --------------------------------------------------
 
     def health_payload(self) -> Dict[str, Any]:
-        """The ``{"op": "health"}`` reply: the engine's ``health()`` with
-        the server's draining state folded in."""
-        h = self.engine.health()
-        h["status"] = health_status(
-            draining=self._draining or bool(
-                self.handler is not None and self.handler.requested),
-            recovering=(h["status"] == "degraded"))
+        """The ``{"op": "health"}`` reply: the health source's view
+        (``engine.health()`` by default) with the server's draining state
+        folded in.  A source that already says ``draining`` (a fleet with
+        a rotating replica) stays ``draining``."""
+        source = (self._health_source if self._health_source is not None
+                  else self.engine.health)
+        h = source()
+        if h["status"] != "draining":
+            h["status"] = health_status(
+                draining=self._draining or bool(
+                    self.handler is not None and self.handler.requested),
+                recovering=(h["status"] == "degraded"))
         h["op"] = "health"
         return h
 
@@ -210,11 +265,15 @@ class CaptionServer:
         a per-line error and counts: the loop survives any input."""
         try:
             self._handle_line_inner(line, respond)
+        except LockOrderViolation:
+            raise  # a fault of this process, not of the line: die loudly
         except Exception as e:  # one bad line must never kill the loop
             self._count("serve_bad_lines")
             try:
                 self._write(respond, {"id": None, "error": "bad_request",
                                       "detail": f"line handling failed: {e}"})
+            except LockOrderViolation:
+                raise
             except Exception as werr:   # the client went away mid-line
                 log.debug("error response write failed: %r", werr)
 
@@ -255,9 +314,21 @@ class CaptionServer:
             return
         if op == "dump":
             self._count("serve_dump_queries")
-            self._write(respond, {"op": "dump", "error": "no_recorder",
-                                  "detail": "lifecycle tracing is not "
-                                            "armed"})
+            if self._lifecycle is None:
+                self._write(respond, {"op": "dump", "error": "no_recorder",
+                                      "detail": "lifecycle tracing is not "
+                                                "armed"})
+                return
+            path = req.get("path") or self.blackbox_path
+            if not path:
+                self._write(respond, {"op": "dump", "error": "no_path",
+                                      "detail": "no blackbox path "
+                                                "configured or supplied"})
+                return
+            doc = self._lifecycle.dump(path, reason="wire_dump")
+            self._write(respond, {"op": "dump", "path": str(path),
+                                  "events": doc["events_retained"],
+                                  "emitted": doc["events_emitted"]})
             return
         rid = req.get("id")
         if op not in ("caption", "stream"):
@@ -269,6 +340,8 @@ class CaptionServer:
                                             "'ping' or 'dump'"})
             return
         stream = op == "stream"
+        if stream and self.engine.chunk >= self.engine.max_len:
+            warn_stream_legacy_scan()
         vid = req.get("video_id")
         if vid is None:
             self._bad(respond, rid, "expected {'id', 'video_id'}")
@@ -295,6 +368,9 @@ class CaptionServer:
                 "stream": stream}
         if idem is not None:
             meta["idem"] = idem
+        tr = req.get("trace")
+        if isinstance(tr, dict):
+            meta["trace"] = tr     # the engine's lifecycle events echo it
         try:
             ok = self.engine.submit((rid, vid),
                                     [np.asarray(f) for f in feats],
@@ -308,6 +384,8 @@ class CaptionServer:
             self._write(respond, self._mark_stream_terminal(
                 {"id": rid, "error": "shed", "video_id": vid,
                  "queue_depth": self.engine.queue_depth}, stream))
+            if self._lifecycle is not None:
+                self._lifecycle.emit("responded", (rid, vid), status="shed")
 
     # -- scheduler loop ----------------------------------------------------
 
@@ -333,7 +411,9 @@ class CaptionServer:
         unfinished = self.engine.resident_count
         # Every request gets an answer: an aborted drain's residents are
         # rejected like the queued ones.
-        for req in rejected + self.engine.resident_requests():
+        abandoned = self.engine.resident_requests()
+        for req, was_resident in ([(r, False) for r in rejected]
+                                  + [(r, True) for r in abandoned]):
             meta = req.meta or {}
             self._write(meta.get("respond", self._stdout_respond),
                         self._mark_stream_terminal(
@@ -341,6 +421,18 @@ class CaptionServer:
                              "video_id": meta.get("video_id"),
                              "error": "rejected_draining"},
                             meta.get("stream")))
+            if self._lifecycle is not None:
+                # The engine's drain already dropped the queued ones; the
+                # abandoned residents get their terminal here.
+                if was_resident:
+                    self._lifecycle.emit("dropped", req.request_id,
+                                         reason="rejected_draining",
+                                         where="drain_abort")
+                self._lifecycle.emit("responded", req.request_id,
+                                     status="rejected_draining")
+        if aborted() and self._lifecycle is not None and self.blackbox_path:
+            # What was in flight when the operator said "stop now".
+            self._lifecycle.dump(self.blackbox_path, reason="drain_abort")
         if aborted():
             print(f"serve: drain aborted by a second signal with "
                   f"{unfinished} resident(s) unfinished; exiting "
@@ -413,7 +505,7 @@ class CaptionServer:
         conns: List[socket.socket] = []
 
         def reader(conn: socket.socket) -> None:
-            lock = threading.Lock()
+            lock = named_lock("serving.server.conn")
 
             def respond(line: str) -> None:
                 with lock:

@@ -16,11 +16,11 @@ from __future__ import annotations
 
 import json
 import os
-import threading
 import time
 from typing import Any, Dict, List, Optional
 
 from ..resilience.integrity import atomic_json_write
+from ..utils.locksan import named_lock
 
 #: Version stamped into every metrics.jsonl record and snapshot.
 METRICS_SCHEMA = 2
@@ -30,7 +30,7 @@ class MetricsRegistry:
     """Counters, gauges, histograms + step-record fan-out to sinks."""
 
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = named_lock("telemetry.registry")
         self._counters: Dict[str, float] = {}
         self._gauges: Dict[str, float] = {}
         self._hists: Dict[str, Dict[str, float]] = {}

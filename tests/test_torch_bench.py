@@ -352,3 +352,129 @@ def test_cst_paths_each_start_from_the_first_state(monkeypatch):
         assert torch.equal(w, first)
     # Each loop trained as it ran: the state was restored, not untouched.
     assert not torch.equal(r[7], first) and not torch.equal(f[3], first)
+
+
+# -- the fleet and the lifecycle tracer in the serving stage ------------------
+
+FLEET_ARGS = ["--stage", "serving", "--serve_requests", "6",
+              "--serve_rate", "200", "--probe_eos_bias", "0",
+              "--serve_buckets", "1,2"]
+
+
+def _bench_record(capsys, *extra):
+    assert bench.main(TINY + FLEET_ARGS + list(extra)) == 0
+    return json.loads(capsys.readouterr().out)
+
+
+def test_serving_fleet_with_a_kill_keeps_parity(capsys):
+    rec = _bench_record(capsys, "--replicas", "2", "--serve_kill_replica",
+                        "0")
+    fl = rec["fleet"]
+    assert fl["enabled"] and fl["replicas"] == 2
+    assert fl["parity_ok"] is True and fl["parity_mismatches"] == 0
+    assert fl["killed_replica"] == 0
+    assert (fl["fleet_replica_kills"], fl["fleet_replica_restarts"]) == (1, 1)
+    assert fl["answered"] == rec["completed"] == 6
+    assert len(fl["per_replica"]) == 2
+    assert rec["replicas_share_device"] is True
+    assert rec["libraries_loaded_after_warmup"] == 0
+    assert rec["lifecycle"] == {"enabled": False}
+    assert (rec["config"]["replicas"], rec["config"]["serve_kill_replica"],
+            rec["config"]["serve_trace"]) == (2, 0, 0)
+
+
+def test_serving_trace_writes_a_balanced_blackbox(capsys, tmp_path):
+    box = tmp_path / "bb.json"
+    rec = _bench_record(capsys, "--serve_trace", "1", "--serve_blackbox",
+                        str(box))
+    lc = rec["lifecycle"]
+    assert lc["enabled"] and lc["terminal_ok"] and lc["submitted"] == 6
+    assert lc["blackbox"] == str(box)
+    assert rec["attribution"]["reconcile_ok"]
+    assert rec["attribution"]["requests"] == 6
+    doc = json.loads(box.read_text())
+    assert doc["reason"] == "probe_end" and doc["accounting"]["terminal_ok"]
+    assert "fleet" not in rec and "replicas_share_device" not in rec
+    assert rec["config"]["serve_trace"] == 1
+
+
+@pytest.fixture(scope="module")
+def ref_fleet_probe(tmp_path_factory):
+    """The reference probe's fleet, lifecycle and attribution records on a
+    tiny model with replicas, a kill and the tracer on."""
+    import jax
+    from cst_captioning_tpu.models import CaptionModel
+
+    model = CaptionModel(vocab_size=20, embed_size=16, hidden_size=16,
+                         attn_size=16, dropout_rate=0.0)
+    variables = model.init(jax.random.PRNGKey(0),
+                           [np.zeros((2, 4, 8), np.float32)],
+                           np.zeros((2, 6), np.int32))
+    return ref_serving_bench.serving_probe(
+        model, variables, [(4, 8)], num_requests=6, rate_hz=200.0,
+        max_len=6, decode_chunk=2, bucket_sizes=(1, 2), seed=4,
+        replicas=2, kill_replica=0, lifecycle=True,
+        blackbox_path=str(tmp_path_factory.mktemp("ref") / "bb.json"))
+
+
+@pytest.mark.parametrize("record", ["fleet", "lifecycle", "attribution"])
+def test_fleet_and_lifecycle_keys_are_the_references(record, capsys,
+                                                     tmp_path,
+                                                     ref_fleet_probe):
+    rec = _bench_record(capsys, "--replicas", "2", "--serve_kill_replica",
+                        "0", "--serve_trace", "1", "--serve_blackbox",
+                        str(tmp_path / "bb.json"))
+    assert set(rec[record]) == set(ref_fleet_probe[record])
+    if record == "attribution":
+        assert set(rec[record]["components"]) == \
+            set(ref_fleet_probe[record]["components"])
+
+
+@pytest.fixture(scope="module")
+def port_fleet_record(tmp_path_factory):
+    """One traced fleet record of the port's bench, with a kill."""
+    import contextlib
+    import io
+
+    out = io.StringIO()
+    box = tmp_path_factory.mktemp("port") / "bb.json"
+    with contextlib.redirect_stdout(out):
+        assert bench.main(TINY + FLEET_ARGS + [
+            "--replicas", "2", "--serve_kill_replica", "1",
+            "--serve_trace", "1", "--serve_blackbox", str(box)]) == 0
+    return json.loads(out.getvalue())
+
+
+def _serve_report(record, tmp_path):
+    path = tmp_path / "serving.json"
+    path.write_text(json.dumps(record) + "\n")
+    return subprocess.run(
+        [sys.executable, os.path.join(REPO, "scripts", "serve_report.py"),
+         "--file", str(path)], capture_output=True, text=True, cwd=REPO,
+        timeout=120)
+
+
+@pytest.mark.parametrize("fault", [None, "parity", "accounting",
+                                   "reconcile"])
+def test_serve_report_gates_pass_on_the_ports_records(fault, tmp_path,
+                                                      port_fleet_record):
+    """The reference's report (standard library only) reads the port's
+    fleet and lifecycle records: its gates pass on a real record and fail
+    on the same record with one verdict flipped."""
+    rec = json.loads(json.dumps(port_fleet_record))
+    if fault == "parity":
+        rec["fleet"].update(parity_ok=False, parity_mismatches=1)
+    elif fault == "accounting":
+        rec["lifecycle"].update(terminal_ok=False, unterminated=1)
+    elif fault == "reconcile":
+        rec["attribution"]["reconcile_ok"] = False
+    proc = _serve_report(rec, tmp_path)
+    if fault is None:
+        assert proc.returncode == 0, proc.stderr
+        assert "captions/s/fleet" in proc.stdout
+        assert "replica 0" in proc.stdout and "replica 1" in proc.stdout
+        assert "parity_ok=True" in proc.stdout
+        assert "queue_wait" in proc.stdout
+    else:
+        assert proc.returncode == 1, proc.stdout
+        assert "!!" in proc.stderr
