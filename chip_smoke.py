@@ -160,7 +160,32 @@ Phases, each printed as it runs; any failure exits non-zero:
    p50/p99 of each, the dump op's event count and the trace parts; (g)
    the bench's ``--replicas 3 --serve_kill_replica 1 --serve_trace 1``
    record, ``fleet.parity_ok`` and the accounting true.  The phase's
-   seconds are printed (budget 90 s).
+   seconds are printed (budget 90 s);
+15. the process fleet, ``python -m cst_captioning_tpu_torch.serve_supervisor``
+   at phase 4's width and model, every process with
+   ``CST_LOCK_SANITIZER=1``: (a) 3 serve-CLI children sharing the card
+   serve 32 greedy requests over 2 socket connections, timed with nothing
+   else on the card (captions equal to phase 4's, each child's exit stats
+   K2 twice a decode step, routed counts, captions/s and p50/p99, and the
+   supervisor process without a CUDA context); (a') 2 children on the
+   reference cell with K1 serve 16 (equal to phase 6's, K1 once a step);
+   then at once: (b) ``--supervise_probe 1`` (``proc_kill@replica=1``
+   after a ``dump``: every request answered once, captions equal to the
+   single-engine child's and phase 4's, ``incidents/<NNN>_replica1_rc137/``
+   with the blackbox, no post-warm-up compile and no ``nvcc`` build in a
+   live child); (c) ``proc_wedge@replica=0`` (SIGSTOP, killed from outside
+   as 124) and ``proc_preempt@replica=2`` (drain, exit 75, its queue
+   requeued) under 24 streams, each equal to phase 4's; (d)
+   ``--journal_probe 1`` (the supervisor's process group SIGKILLed
+   mid-storm, relaunched on its journal); (e) ``--autoscale_probe 1``
+   (1 -> more -> 1 replica, answers equal to phase 4's); (g) every child
+   given a fatal fault at ``--supervise_restart_limit 0``: exit 124, one
+   incident per replica, the blackbox naming every replica dead; (f) over
+   (b): ``fleet_metrics.jsonl`` with every replica slot in every row and no
+   gap over 3 intervals, ``clock_sync.json`` one entry per child pid, the
+   supervisor's and each child's trace parts, no SLO alert.  No process
+   of the phase is left running.  The phase's seconds are printed
+   (budget 150 s).
 
 Each serving phase sets every kernel's launch count to 0 just before it
 and reads the counts just after; a kernel of the path launched other
@@ -173,7 +198,7 @@ dispatched; the fused path builds no host reward.
 Output: phase lines as they run; then a JSON object with one entry per
 kernel and storage dtype (``storage``; times at the serving batch B = 8,
 every measured batch under ``by_batch``; launches of phases 4-7, 9, 10,
-12, 13 and 14 for float32, of phases 8, 11 and 14g for bfloat16); then
+12, 13, 14 and 15 for float32, of phases 8, 11 and 14g for bfloat16); then
 the card line (``nvidia-smi``
 name and power limit); and last ``{"ok": true, "device": ...}``.
 Without a CUDA device, or run outside a checkout of the repository, the
@@ -185,6 +210,7 @@ from __future__ import annotations
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -3012,6 +3038,425 @@ def fleet_phase(greedy_caps, ref_caps) -> dict:
     return total
 
 
+PROC_BUDGET_S = 150.0
+PROC_REPLICAS, PROC_REQUESTS = 3, 32
+PROC_ROOT = os.path.join(HERE, "checkpoints", "chip_smoke_procs")
+PROC_WEDGE_TIMEOUT = "20"
+_LISTEN = re.compile(r"serve: listening on 127\.0\.0\.1:(\d+)")
+
+
+def supervisor_cli(root: str, *extra, stdin=None):
+    """The process-fleet CLI at phase 4's width and model, in a process
+    group of its own (one ``killpg`` reaches it and its children), with
+    the lock sanitizer armed in it and every child; stdout and stderr go
+    to files in ``root``.  A group, not a session: a session leader's
+    group is orphaned, and when a process of an orphaned group that holds
+    a stopped process (the wedge drill's SIGSTOP) exits, the kernel sends
+    the whole group SIGHUP and SIGCONT."""
+    os.makedirs(root, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=HERE, CST_LOCK_SANITIZER="1",
+               CST_LOCK_SANITIZER_RECEIPT=os.path.join(root, "locksan.json"))
+    with open(os.path.join(root, "stdout.txt"), "w") as out, \
+            open(os.path.join(root, "stderr.txt"), "w") as err:
+        return subprocess.Popen(
+            [sys.executable, "-m", "cst_captioning_tpu_torch.serve_supervisor",
+             "--serve_demo", "1", "--serve_demo_eos_bias", EOS_BIAS,
+             *WIDTH_ARGS, "--beam_size", "1", "--supervise_dir", root,
+             *extra],
+            stdin=subprocess.PIPE if stdin is not None else subprocess.DEVNULL,
+            stdout=out, stderr=err, text=True, cwd=HERE, env=env,
+            process_group=0)
+
+
+def reap_fleet_processes() -> list:
+    """SIGKILL every process of this phase: each supervisor's group, and
+    any process whose command line names ``PROC_ROOT`` (the journal
+    drill's inner supervisors lead sessions of their own).  -> the pids
+    found still running."""
+    import signal
+
+    found = []
+    me = os.getpid()
+    for pid in os.listdir("/proc"):
+        if not pid.isdigit() or int(pid) == me:
+            continue
+        try:
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace")
+        except OSError:
+            continue
+        if PROC_ROOT in cmd:
+            found.append(int(pid))
+            try:
+                os.kill(int(pid), signal.SIGKILL)
+            except OSError:
+                pass
+    return found
+
+
+def wait_listening(proc, root: str, timeout_s: float = 300.0) -> int:
+    """The supervisor's port, from its ``serve: listening on`` line."""
+    path = os.path.join(root, "stderr.txt")
+    end = time.monotonic() + timeout_s
+    while time.monotonic() < end:
+        with open(path) as f:
+            m = _LISTEN.search(f.read())
+        if m:
+            return int(m.group(1))
+        if proc.poll() is not None:
+            break
+        time.sleep(0.05)
+    fail(f"phase 15: the supervisor in {root} never listened (exit "
+         f"{proc.poll()}):\n" + open(path).read()[-3000:])
+
+
+def finish(proc, root: str, timeout_s: float) -> int:
+    try:
+        return proc.wait(timeout=timeout_s)
+    except subprocess.TimeoutExpired:
+        fail(f"phase 15: {root} ran past {timeout_s:.0f} s:\n"
+             + open(os.path.join(root, "stderr.txt")).read()[-3000:])
+
+
+def child_results(root: str) -> list:
+    """The exit stats of every child that exited cleanly under ``root``
+    (``replica<K>/result.json``, ``reference/result.json``)."""
+    out = []
+    for name in sorted(os.listdir(root)):
+        path = os.path.join(root, name, "result.json")
+        if os.path.exists(path):
+            with open(path) as f:
+                out.append((name, json.load(f)["stats"]))
+    return out
+
+
+def child_launches(run: str, root: str, kernel: str) -> int:
+    """Sum a kernel's launches over the children's exit stats under
+    ``root``, each held to its count per decode step (K2 twice, K1
+    once)."""
+    key, per = {"K2": ("fused_decode_cell", 2),
+                "K1": ("fused_additive_attention", 1)}[kernel]
+    total = 0
+    for name, st in child_results(root):
+        n = st["kernel_launches"][key]
+        if n or st["decode_steps"]:     # a restarted child may serve none
+            check_launches(f"phase 15 {run} {name}", kernel, n,
+                           st["decode_steps"], per)
+        total += n
+    return total
+
+
+def socket_serve(port: int, conns: int, n: int, video=lambda i: f"v{i % 16}"):
+    """``n`` greedy requests over ``conns`` connections to a supervisor;
+    -> ({id: reply}, seconds from the first send to the last answer)."""
+    import socket
+
+    socks = [socket.create_connection(("127.0.0.1", port), timeout=300)
+             for _ in range(conns)]
+    files = [s.makefile("r", encoding="utf-8") for s in socks]
+    t0 = time.perf_counter()
+    for i in range(n):
+        socks[i % conns].sendall((json.dumps(
+            {"id": i, "video_id": video(i)}) + "\n").encode())
+    replies = {}
+    for k, f in enumerate(files):
+        want = len(range(k, n, conns))
+        while sum(1 for i in replies if i % conns == k) < want:
+            r = json.loads(f.readline())
+            replies[r["id"]] = r
+    seconds = time.perf_counter() - t0
+    socks[0].sendall(b'{"op": "stats"}\n')
+    stats = json.loads(files[0].readline())
+    for s in socks:
+        s.close()
+    return replies, seconds, stats
+
+
+def stop_supervisor(proc, root: str) -> dict:
+    """SIGTERM: the children drain and exit 75, then the supervisor does.
+    -> its exit snapshot."""
+    import signal
+
+    os.kill(proc.pid, signal.SIGTERM)
+    rc = finish(proc, root, 120)
+    if rc != 75:
+        fail(f"phase 15: SIGTERM gave exit {rc}, 75 expected")
+    with open(os.path.join(root, "supervisor_exit.json")) as f:
+        return json.load(f)
+
+
+def record_of(root: str) -> dict:
+    lines = open(os.path.join(root, "stdout.txt")).read().splitlines()
+    return json.loads(lines[-1]) if lines else {}
+
+
+def fleet_plane_checks(root: str, rec: dict) -> str:
+    """Phase 15 (f) over the kill probe's directory."""
+    rows = [json.loads(ln) for ln in open(
+        os.path.join(root, "fleet_metrics.jsonl"))]
+    interval = rows[0]["interval_ms"] / 1e3
+    gaps = [b["wall"] - a["wall"] for a, b in zip(rows, rows[1:])]
+    covered = all(len(r["children"]) == r["fleet"]["replicas"]
+                  and {c["index"] for c in r["children"]}
+                  == set(range(r["fleet"]["replicas"])) for r in rows)
+    sync = json.load(open(os.path.join(root, "clock_sync.json")))
+    pids = len(sync["children"])
+    want_pids = PROC_REPLICAS + rec["supervisor"]["restarts"]
+    traces = {d: len([n for n in os.listdir(os.path.join(root, d))
+                      if n.endswith(".json")])
+              for d in ["trace"] + [f"replica{k}/trace"
+                                    for k in range(PROC_REPLICAS)]
+              if os.path.isdir(os.path.join(root, d))}
+    alerts = os.path.join(root, "slo_alerts.jsonl")
+    n_alerts = (len(open(alerts).read().splitlines())
+                if os.path.exists(alerts) else 0)
+    line = (f"{len(rows)} samples, every replica slot in every row "
+            f"{covered}, largest gap {max(gaps):.3f} s (limit "
+            f"{3 * interval:.3f} s); clock_sync {pids} child pids "
+            f"({want_pids} expected); trace parts {traces}; SLO alerts "
+            f"{n_alerts}")
+    if not (covered and max(gaps) <= 3 * interval and pids == want_pids
+            and len(traces) == PROC_REPLICAS + 1 and all(traces.values())
+            and n_alerts == 0 and rec["slo"]["alerts_fired"] == 0):
+        fail(f"phase 15 (f): {line}")
+    return line
+
+
+def process_fleet_phase(greedy_caps, ref_caps) -> dict:
+    """Phase 15: the process fleet, ``python -m
+    cst_captioning_tpu_torch.serve_supervisor`` at phase 4's width and
+    model.  (a) 3 children serve 32 greedy requests over 2 connections,
+    timed alone on the card; (a') 2 children on the reference cell with K1
+    serve 16; then, all at once: (b) the kill probe, (c) a wedge and a
+    preempt, (d) the journal probe, (e) the autoscale probe, (g) every
+    replica dead; (f) the fleet plane over (b).  -> {"K1", "K2"} float32
+    launches read from the children's exit stats."""
+    import shutil
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(PROC_ROOT, ignore_errors=True)
+    runs = {}
+    total = {"K1": 0, "K2": 0}
+
+    def root(name):
+        return os.path.join(PROC_ROOT, name)
+
+    def equal_to(caps, want):
+        return sum(caps[v] == want[v] for v in caps)
+
+    try:
+        # (a) plain serving, 3 children sharing the card.
+        # No result cache, as in phases 4 and 14: every request decodes.
+        p = runs["a"] = supervisor_cli(
+            root("a"), "--decode_kernel", "fused", "--supervise_replicas",
+            str(PROC_REPLICAS), "--serve_port", "-1", "--serve_cache", "0")
+        port = wait_listening(p, root("a"))
+        socket_serve(port, PROC_REPLICAS, 2 * PROC_REPLICAS,
+                     video=lambda i: f"v{i}")          # warm-up, two each
+        replies, secs, st = socket_serve(port, 2, PROC_REQUESTS)
+        lat = sorted(r["latency_ms"] for r in replies.values())
+        p50, p99 = (lat[min(len(lat) - 1, round(q * (len(lat) - 1)))]
+                    for q in (0.5, 0.99))
+        exit_doc = stop_supervisor(p, root("a"))
+        caps = {f"v{i % 16}": r.get("caption") for i, r in replies.items()}
+        same = sum(r.get("caption") == greedy_caps[f"v{i % 16}"]
+                   for i, r in replies.items())
+        k2n = child_launches("a", root("a"), "K2")
+        total["K2"] += k2n
+        per = {s["replica"]: s["completed"] for s in st["per_replica"]}
+        print(f"process fleet (a): {PROC_REPLICAS} processes sharing one "
+              f"card ({card_line()}): {PROC_REQUESTS} requests over 2 "
+              f"connections in {secs:.4f} s = {PROC_REQUESTS / secs:.3f} "
+              f"captions/s; latency p50={p50} ms p99={p99} ms "
+              f"(supervisor intake to answer); completed per child "
+              f"{per}; routed {st['supervisor']['sup_routed']}; "
+              f"{same}/{PROC_REQUESTS} captions equal to phase 4's; K2 "
+              f"launches {k2n}; parent CUDA context "
+              f"{exit_doc['parent_cuda_initialized']}")
+        if (same != PROC_REQUESTS or len(caps) != 16
+                or exit_doc["parent_cuda_initialized"]):
+            fail("phase 15 (a): captions differ from phase 4's or the "
+                 "supervisor created a CUDA context")
+
+        # (a') the reference cell with K1, 2 children.
+        p = runs["a2"] = supervisor_cli(
+            root("a2"), "--decode_kernel", "reference",
+            "--pallas_attention", "1", "--supervise_replicas", "2",
+            "--serve_port", "-1")
+        port = wait_listening(p, root("a2"))
+        replies, secs, st = socket_serve(port, 1, 16,
+                                         video=lambda i: f"v{i}")
+        stop_supervisor(p, root("a2"))
+        same = sum(r.get("caption") == ref_caps[f"v{i}"]
+                   for i, r in replies.items())
+        k1n = child_launches("a'", root("a2"), "K1")
+        total["K1"] += k1n
+        print(f"process fleet (a'): 2 processes on the reference cell with "
+              f"K1 (sharing one card): 16 requests in {secs:.4f} s; "
+              f"{same}/16 captions equal to phase 6's; K1 launches {k1n}")
+        if same != 16:
+            fail("phase 15 (a'): captions differ from phase 6's")
+
+        # (b)-(g) at once: none of them is timed.
+        t_conc = time.perf_counter()
+        fused = ("--decode_kernel", "fused")
+        runs["b"] = supervisor_cli(
+            root("b"), *fused, "--supervise_probe", "1",
+            "--supervise_replicas", str(PROC_REPLICAS),
+            "--slo_p99_ms", "60000", "--slo_availability", "0.5")
+        runs["c"] = supervisor_cli(
+            root("c"), *fused, "--supervise_replicas", str(PROC_REPLICAS),
+            "--fault_plan", "proc_wedge@replica=0,proc_preempt@replica=2",
+            "--wedge_timeout", PROC_WEDGE_TIMEOUT, stdin=True)
+        runs["d"] = supervisor_cli(
+            root("d"), *fused, "--journal_probe", "1",
+            "--supervise_replicas", "2")
+        runs["e"] = supervisor_cli(
+            root("e"), *fused, "--autoscale_probe", "1", "--autoscale_min",
+            "1", "--autoscale_max", "3", "--autoscale_up_cooldown_s", "1",
+            "--autoscale_down_cooldown_s", "1", "--fleet_scrape_ms", "200",
+            "--autoscale_queue_hi_ms", "10", "--serve_cache", "0")
+        runs["g"] = supervisor_cli(
+            root("g"), *fused, "--supervise_replicas", "2",
+            "--supervise_restart_limit", "0", "--serve_recover", "0",
+            "--fault_plan", "serve_wedge@replica=0,serve_wedge@replica=1",
+            stdin=True)
+        c_lines = [json.dumps({"id": i, "video_id": f"v{i % 16}",
+                               "op": "stream"}) + "\n" for i in range(24)]
+        runs["c"].stdin.write("".join(c_lines))
+        runs["c"].stdin.close()
+        runs["g"].stdin.write("".join(
+            json.dumps({"id": i, "video_id": f"v{i}"}) + "\n"
+            for i in range(4)))
+        runs["g"].stdin.close()
+        rcs = {k: finish(runs[k], root(k), 420) for k in "bcdeg"}
+        print(f"process fleet (b)-(g) together: {time.perf_counter() - t_conc:.1f} s; "
+              f"exits {rcs}")
+
+        # (b) the kill probe.
+        rec = record_of(root("b"))
+        sup = rec.get("supervisor", {})
+        inc = [d for d in os.listdir(os.path.join(root("b"), "incidents"))
+               if re.fullmatch(r"\d{3}_replica1_rc137", d)]
+        bb = bool(inc) and os.path.exists(os.path.join(
+            root("b"), "incidents", inc[0], "blackbox.json"))
+        same = equal_to(sup.get("captions", {}), greedy_caps)
+        print(f"process fleet (b) proc_kill@replica=1: exit {rcs['b']}; "
+              f"{rec.get('completed')}/{rec.get('num_requests')} answered "
+              f"once, {same}/{len(sup.get('captions', {}))} captions equal "
+              f"to phase 4's, parity with the single-engine child "
+              f"{sup.get('parity_ok')}, prefix {rec.get('stream')}; "
+              f"restarts {sup.get('restarts')}, requeued "
+              f"{sup.get('requeued')}; incident {inc} blackbox {bb}; "
+              f"recompiles after warm-up {rec.get('recompiles_after_warmup')}"
+              f", nvcc builds per live child {sup.get('library_builds')}")
+        if (rcs["b"] != 0 or not bb or same != 16
+                or rec["recompiles_after_warmup"] != 0
+                or sup["restarts"] != 1
+                or any(sup["library_builds"].values())):
+            fail(f"phase 15 (b): {rec}")
+
+        # (f) the fleet plane over (b).
+        print("process fleet (f): " + fleet_plane_checks(root("b"), rec))
+
+        # (c) the wedge and the preempt.
+        answers = {}
+        for ln in open(os.path.join(root("c"), "stdout.txt")):
+            r = json.loads(ln)
+            answers.setdefault(r["id"], []).append(r)
+        doc = json.load(open(os.path.join(root("c"), "supervisor_exit.json")))
+        incs = [(i["replica"], i["rc"], i["classification"])
+                for i in doc["stats"]["incidents"]]
+        ok_c = sum(
+            1 for i, rs in answers.items()
+            if [r.get("caption") for r in rs if r.get("final")]
+            == [greedy_caps[f"v{i % 16}"]]
+            and " ".join(r["text"] for r in rs
+                         if not r.get("final") and r["text"])
+            == greedy_caps[f"v{i % 16}"])
+        c = doc["stats"]["supervisor"]
+        print(f"process fleet (c) proc_wedge@replica=0 (SIGSTOP, killed "
+              f"from outside after {PROC_WEDGE_TIMEOUT} s), "
+              f"proc_preempt@replica=2: exit {rcs['c']}; incidents {incs}; "
+              f"wedge kills {c['sup_wedge_kills']}, requeued "
+              f"{c['sup_requeued']}, restarts {c['sup_replica_restarts']}; "
+              f"{ok_c}/24 streams answered once, prefix-consistent and "
+              f"equal to phase 4's")
+        if (rcs["c"] != 0 or ok_c != 24 or len(answers) != 24
+                or (0, 124, "wedge") not in incs
+                or (2, 75, "resumable") not in incs
+                or c["sup_wedge_kills"] != 1):
+            fail(f"phase 15 (c): {doc['stats']}")
+
+        # (d) the journal probe.
+        rec = record_of(root("d"))
+        j = rec.get("journal", {})
+        same = equal_to(rec.get("supervisor", {}).get("captions", {}),
+                        greedy_caps)
+        print(f"process fleet (d) journal probe: exit {rcs['d']}; "
+              f"{ {k: j.get(k) for k in ('killed_mid_storm', 'terminals_before_kill', 'streams_in_flight_at_kill', 'replayed', 'recovered_terminals', 'replay_accounted', 'exactly_once', 'dup_suppressed', 'torn_records', 'clean_exit')} }"
+              f"; prefix {rec.get('stream')}; {same}/6 captions equal to "
+              f"phase 4's")
+        if rcs["d"] != 0 or same != 6:
+            fail(f"phase 15 (d): {rec}")
+
+        # (e) the autoscale probe.
+        rec = record_of(root("e"))
+        a = rec.get("autoscale", {})
+        caps = rec.get("supervisor", {}).get("captions", {})
+        same = equal_to(caps, greedy_caps)
+        print(f"process fleet (e) autoscale probe: exit {rcs['e']}; "
+              f"{rec.get('num_requests')} requests, scale ups "
+              f"{a.get('scale_ups')} (after {a.get('scale_up_intervals')} "
+              f"scrape intervals) and downs {a.get('scale_downs')}, back "
+              f"to the floor {a.get('scaled_down')}; {same}/{len(caps)} "
+              f"captions equal to phase 4's; recompiles after warm-up "
+              f"{rec.get('recompiles_after_warmup')}")
+        if rcs["e"] != 0 or not caps or same != len(caps):
+            fail(f"phase 15 (e): {rec}")
+
+        # (g) every replica dead.
+        doc = json.load(open(os.path.join(root("g"), "supervisor_exit.json")))
+        box = json.load(open(os.path.join(root("g"), "blackbox.json")))
+        dead = [p["status"] for p in box["health"]["per_replica"]]
+        incs = sorted(os.listdir(os.path.join(root("g"), "incidents")))
+        print(f"process fleet (g) every replica dead: exit {rcs['g']}; "
+              f"incidents {incs}; blackbox ({box['reason']}) replicas "
+              f"{dead}")
+        if (rcs["g"] != 124 or dead != ["dead", "dead"] or len(incs) != 2
+                or doc["stats"]["supervisor"]["sup_replica_deaths"] != 2):
+            fail(f"phase 15 (g): {doc['stats']}")
+
+        receipts = [k for k in runs
+                    if os.path.exists(os.path.join(root(k), "locksan.json"))]
+        print(f"process fleet lock sanitizer: {len(receipts)} processes "
+              f"with violations")
+        if receipts:
+            fail(f"phase 15: lock-order violations in {receipts}")
+        for k in "bcde":
+            total["K2"] += child_launches(k, root(k), "K2")
+    finally:
+        for p in runs.values():
+            if p.poll() is None:
+                try:
+                    os.killpg(p.pid, 9)
+                except OSError:
+                    pass
+                p.wait()
+        time.sleep(0.5)
+        left = reap_fleet_processes()
+    print(f"process fleet: processes left running after the phase: "
+          f"{len(left)}")
+    if left:
+        fail(f"phase 15: {len(left)} processes outlived their run: {left}")
+    seconds = time.perf_counter() - t_phase
+    print(f"process fleet phase: {seconds:.1f} s (budget "
+          f"{PROC_BUDGET_S:.0f} s); launches {total}")
+    if not (total["K1"] and total["K2"]):
+        fail(f"phase 15: a kernel never launched: {total}")
+    return total
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "cst_captioning_tpu_torch")):
         print("chip_smoke: no cst_captioning_tpu_torch package beside "
@@ -3112,9 +3557,14 @@ def main() -> int:
     # bench's fleet record).
     fleet_launch = fleet_phase(greedy_caps, ref_caps)
 
+    # Phase 15: the process fleet (serve-CLI children under the
+    # supervisor: plain serving, a kill, a wedge and a preempt, the
+    # journal, the autoscaler, the fleet plane, every replica dead).
+    proc_launch = process_fleet_phase(greedy_caps, ref_caps)
+
     # The kernels line: one entry per kernel and storage dtype.  Launches:
-    # float32 from phases 4-7, 9, 10, 12, 13 and 14, bfloat16 from phases
-    # 8, 11 and 14g;
+    # float32 from phases 4-7, 9, 10, 12, 13, 14 and 15, bfloat16 from
+    # phases 8, 11 and 14g;
     # times at B=8, the
     # greedy serving batch (8-slot bucket), every measured batch under
     # ``by_batch``.
@@ -3122,12 +3572,14 @@ def main() -> int:
         ("K1", "float32"): r_launch["fused_additive_attention"]
         + t_launch["fused_additive_attention"]
         + resume_launch["fused_additive_attention"]
-        + f_launch["fused_additive_attention"] + fleet_launch["K1"],
+        + f_launch["fused_additive_attention"] + fleet_launch["K1"]
+        + proc_launch["K1"],
         ("K2", "float32"): g_launch["fused_decode_cell"]
         + beam_launch["fused_decode_cell"]
         + t_launch["fused_decode_cell"] + e_launch
         + resume_launch["fused_decode_cell"]
-        + f_launch["fused_decode_cell"] + rest_launch + fleet_launch["K2"],
+        + f_launch["fused_decode_cell"] + rest_launch + fleet_launch["K2"]
+        + proc_launch["K2"],
         ("K1", "bfloat16"): s_launch["fused_additive_attention/bfloat16"]
         + bt_launch["fused_additive_attention/bfloat16"]
         + bench_launch["fused_additive_attention"],

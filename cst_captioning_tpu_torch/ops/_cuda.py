@@ -136,6 +136,13 @@ def load(name: str, function: Optional[str] = None):
     return fn
 
 
+def library_builds() -> int:
+    """Libraries this process has compiled with ``nvcc``: 0 where every
+    library it loaded came from the build directory."""
+    with _lock:
+        return _compiles
+
+
 def library_events() -> int:
     """Libraries this process has compiled plus the (library, function)
     pairs it has loaded: a path that must build and load nothing (the

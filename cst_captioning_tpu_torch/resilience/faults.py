@@ -55,8 +55,24 @@ kind              keys on  effect at the injection site
 (``serving/fleet.py``): the parsed plan never fires it; its
 :meth:`FaultPlan.for_replica` derivative hands replica K's engine a
 single-shot spec that fires at the first index probed.  The process
-kinds (``proc_*@replica=K``) parse as in the reference; the port has no
-site for them yet (they act on a process fleet's child processes).
+kinds act on a process fleet's child processes (``serving/supervisor.py``),
+from outside, as real signals:
+
+================  =======  ==================================================
+kind              keys on  effect at the injection site
+================  =======  ==================================================
+``proc_kill``     replica  SIGKILL replica K's serve process mid-work (after
+                           a ``dump`` op); its in-flight requests are
+                           requeued and it restarts (exit 137, resumable)
+``proc_wedge``    replica  SIGSTOP replica K's process; the supervisor's
+                           wedge timeout kills it as exit 124
+``proc_preempt``  replica  SIGTERM replica K's process: it drains, its queue
+                           comes back rejected and is requeued, it exits 75
+================  =======  ==================================================
+
+The supervisor fires them through :meth:`FaultPlan.fire_replica`, once per
+(kind, replica); :meth:`FaultPlan.cli_for_child` gives child K its slice
+of the serving kinds as a ``--fault_plan`` of its own.
 
 Firing is single-shot per (kind, index): a plan replayed after a rollback
 or a resume does not fire an index twice.  ``bind_state(path)`` persists
@@ -273,12 +289,53 @@ class FaultPlan:
                 return True
         return False
 
+    def fire_replica(self, kind: str, replica: int) -> bool:
+        """True exactly once per (``proc_*`` kind, replica): the process
+        fleet's firing API.  The supervisor delivers these as signals to
+        replica ``replica``'s process, so they never pass an engine's
+        ``fire``.  A restarted replica does not fire its own kill again."""
+        if KINDS.get(kind) != "replica":
+            raise ValueError(
+                f"fire_replica is for process-level kinds "
+                f"{sorted(PROC_KINDS)}, not {kind!r}")
+        k = int(replica)
+        for spec in self.specs:
+            if spec.kind == kind and spec.replica == k:
+                key = (kind, k)
+                with self._lock:
+                    if key in self._consumed:
+                        return False
+                    self._consume(kind, key)
+                log.warning("FAULT INJECTED: %s fired at replica=%d "
+                            "(spec %s)", kind, k, spec)
+                return True
+        return False
+
+    def cli_for_child(self, replica: int) -> Optional[str]:
+        """The ``--fault_plan`` a process fleet passes to replica
+        ``replica``'s serve child: every serving ``kind@replica=K`` spec
+        targeting it becomes ``kind@req=0``, the child's first request
+        (a fresh child's first chance at the kind).  ``proc_*`` kinds are
+        not forwarded: the supervisor delivers them.  None when nothing
+        serving-level targets the replica."""
+        k = int(replica)
+        specs = [f"{s.kind}@req=0" for s in self.specs
+                 if s.replica == k and s.kind in REPLICA_KINDS]
+        return ",".join(specs) or None
+
     def pending(self, kind: str) -> int:
-        """Indices of ``kind`` armed but not yet consumed."""
-        return sum(1 for spec in self.specs
-                   if spec.kind == kind and spec.replica is None
-                   for i in range(spec.at, spec.at + spec.times)
-                   if (kind, i) not in self._consumed)
+        """Indices of ``kind`` armed but not yet consumed; a ``proc_*``
+        spec counts its (kind, replica) key."""
+        n = 0
+        for spec in self.specs:
+            if spec.kind != kind:
+                continue
+            if spec.kind in PROC_KINDS and spec.replica is not None:
+                n += int((kind, spec.replica) not in self._consumed)
+            elif spec.replica is None:
+                n += sum(1 for i in range(spec.at, spec.at + spec.times)
+                         if (kind, i) not in self._consumed)
+        return n
 
     def __str__(self) -> str:
         return ",".join(str(s) for s in self.specs)

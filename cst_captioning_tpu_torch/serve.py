@@ -65,9 +65,11 @@ from __future__ import annotations
 
 import argparse
 import json
+import logging
 import os
 import sys
-from typing import Optional
+import traceback
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -78,7 +80,7 @@ from .data.shapes import parse_feat_shapes
 from .data.vocab import Vocab
 from .eval import load_checkpoint_model
 from .models import CaptionModel
-from .resilience.exitcodes import EXIT_WEDGE, describe
+from .resilience.exitcodes import EXIT_FAILURE, EXIT_WEDGE, describe
 from .resilience.faults import FaultPlan, fault_plan_arg
 from .ops import kernel_state
 from .resilience.integrity import atomic_json_write
@@ -110,10 +112,22 @@ def positive_int(text: str) -> int:
     return value
 
 
+def configure_cli_logging(loglevel: str) -> None:
+    """The CLI's root logging config at ``--loglevel``; replaces any
+    handler installed before it (``force=True``)."""
+    logging.basicConfig(
+        level=getattr(logging, str(loglevel).upper(), logging.INFO),
+        format="%(asctime)s %(name)s %(levelname)s %(message)s",
+        force=True)
+
+
 def parse_args(argv=None, fleet: bool = False,
-               description: Optional[str] = None) -> argparse.Namespace:
+               description: Optional[str] = None,
+               extend: Optional[Callable[[argparse.ArgumentParser], None]]
+               = None) -> argparse.Namespace:
     """The serve CLI's flags; ``fleet`` adds ``serve_fleet.py``'s
-    ``--serve_replicas`` and ``--serve_restart_limit``."""
+    ``--serve_replicas`` and ``--serve_restart_limit``; ``extend`` adds a
+    front end's own flags (``serve_supervisor.py``'s)."""
     p = argparse.ArgumentParser(
         description=description or __doc__.splitlines()[0])
     p.add_argument("--serve_demo", type=int, default=0)
@@ -225,6 +239,11 @@ def parse_args(argv=None, fleet: bool = False,
                             "124.  Rotations are free")
     p.add_argument("--device", default=None,
                    help="torch device; default cuda (raises without a GPU)")
+    p.add_argument("--loglevel", default="INFO",
+                   help="the root logger's level (DEBUG, INFO, WARNING, "
+                        "ERROR)")
+    if extend is not None:
+        extend(p)
     raw = sys.argv[1:] if argv is None else list(argv)
     refuse_h5_flags(p, raw)
     opt = p.parse_args(raw)
@@ -402,6 +421,7 @@ def serve_until_exit(name: str, opt, server: CaptionServer, registry,
 
 def main(argv=None) -> int:
     opt = parse_args(argv)
+    configure_cli_logging(opt.loglevel)
     warn_serve_deadline(opt)
     handler = PreemptionHandler().install()
     registry = MetricsRegistry()
@@ -432,7 +452,13 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
-    code = main()
+    try:
+        code = main()
+    except Exception:
+        # An unhandled error exits 1 (fatal in the exit taxonomy), never
+        # through a teardown that could abort and read as a signal death.
+        traceback.print_exc()
+        code = EXIT_FAILURE
     sys.stdout.flush()
     sys.stderr.flush()
     # A reader thread may still be blocked in a read; leave without the

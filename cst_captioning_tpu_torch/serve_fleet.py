@@ -37,8 +37,9 @@ import torch
 
 from .resilience.faults import FaultPlan
 from .resilience.preemption import PreemptionHandler
-from .serve import (build_backend, engine_kwargs, make_tracers, parse_args,
-                    serve_until_exit, warn_serve_deadline)
+from .serve import (build_backend, configure_cli_logging, engine_kwargs,
+                    make_tracers, parse_args, serve_until_exit,
+                    warn_serve_deadline)
 from .serving.cache import ResultCache
 from .serving.engine import ServingEngine
 from .serving.fleet import FleetRouter, FleetUnrecoverable
@@ -57,6 +58,7 @@ def replica_devices(model):
 
 def main(argv=None) -> int:
     opt = parse_args(argv, fleet=True, description=__doc__.splitlines()[0])
+    configure_cli_logging(opt.loglevel)
     warn_serve_deadline(opt)
     handler = PreemptionHandler().install()
     registry = MetricsRegistry()

@@ -77,6 +77,7 @@ from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 
+from ..ops import _cuda
 from ..resilience.exitcodes import EXIT_OK, EXIT_PREEMPTED, EXIT_SIGTERM
 from ..resilience.garble import health_status
 from ..utils.locksan import LockOrderViolation, declare_order, named_lock
@@ -249,6 +250,10 @@ class CaptionServer:
                     self.handler is not None and self.handler.requested),
                 recovering=(h["status"] == "degraded"))
         h["op"] = "health"
+        # The process's kernel-library builds and loads so far: a process
+        # fleet's supervisor reads the first value after warm-up as the
+        # baseline that no later request may move.
+        h["compiles"] = _cuda.library_events()
         return h
 
     def published_health(self) -> Dict[str, Any]:
@@ -302,7 +307,9 @@ class CaptionServer:
             return
         if op == "stats":
             self._count("serve_stats_queries")
-            self._write(respond, {"op": "stats", **self.engine.stats()})
+            self._write(respond, {"op": "stats", **self.engine.stats(),
+                                  "compiles": _cuda.library_events(),
+                                  "library_builds": _cuda.library_builds()})
             return
         if op == "ping":
             # Clock echo: both reads back to back.

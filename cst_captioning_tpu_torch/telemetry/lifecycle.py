@@ -55,9 +55,10 @@ EVENT_KINDS = (
     "shed",          # terminal: backpressure shed (queue or fleet edge)
     "completed",     # terminal: caption harvested (attrs: latency_ms)
     "responded",     # the front end wrote the final wire response
-    # Kinds of the process fleet's planes, not yet ported: their ids are
-    # not requests and their chains have no `received`, so accounting
-    # counts them truncated, never as a terminal violation.
+    # Kinds of the process fleet's planes (telemetry/fleetobs.py,
+    # serving/autoscale.py, serving/supervisor.py's journal replay):
+    # their ids are not requests and their chains have no `received`, so
+    # accounting counts them truncated, never as a terminal violation.
     "slo_alert",           # a fleet SLO burn-rate alert fired or cleared
     "autoscale_decision",  # an autoscaler scale or brownout decision
     "replayed",            # an intake-journal replay after a relaunch

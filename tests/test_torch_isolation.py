@@ -61,7 +61,8 @@ def test_sources_found():
             "checkpoint.py", "bench.py", "flops.py", "loader.py",
             "rewards.py", "tokenizer.py", "dataset.py", "prepro.py",
             "converters.py", "consensus.py", "device_rewards.py",
-            "weights.py", "stage_chain.py"} <= names
+            "weights.py", "stage_chain.py", "journal.py", "supervisor.py",
+            "autoscale.py", "fleetobs.py", "serve_supervisor.py"} <= names
     # The on-disk data path, the port's own copies.
     assert {p.relative_to(PKG).as_posix() for p in PKG.rglob("*.py")} >= {
         "data/dataset.py", "data/prepro.py", "data/converters.py",
@@ -199,3 +200,32 @@ def test_serve_cli_raises_without_gpu_unless_cpu(no_gpu):
     assert model.device == torch.device("cpu") and shapes == [(2, 4)]
     assert len(vocab) == 9 and feats_for("v3")[0].shape == (2, 4)
     assert feats_for("v99") is None and feats_for("x") is None
+
+
+#: The process fleet's supervisor side: host code that never touches the
+#: card (only the serve-CLI children do).
+SUPERVISOR_MODULES = ("serving/supervisor.py", "serving/journal.py",
+                      "serving/autoscale.py", "telemetry/fleetobs.py")
+
+
+@pytest.mark.parametrize("rel", SUPERVISOR_MODULES)
+def test_supervisor_modules_import_no_torch(rel):
+    mods = set(_imported_modules(PKG / rel))
+    assert not {m for m in mods if m.split(".")[0] in ("torch", "numpy")}
+    assert not {m for m in mods if m.startswith(f"{PKG.name}.ops")}
+
+
+def test_supervisor_children_keep_the_device_choice(tmp_path):
+    """A child gets ``--device`` only when the supervisor was given one: a
+    child on a machine without a GPU raises, never falls back."""
+    from cst_captioning_tpu_torch import serve_supervisor as ss
+
+    base = ["--serve_demo", "1", "--supervise_replicas", "2"]
+    opt = ss.parse_supervisor_args(base)
+    argv = ss.child_argv(opt, str(tmp_path), 0)
+    assert argv[1:3] == ["-m", "cst_captioning_tpu_torch.serve"]
+    assert "--device" not in argv
+    assert "--supervise_replicas" not in argv      # never raw argv
+    cpu = ss.child_argv(ss.parse_supervisor_args(base + ["--device", "cpu"]),
+                        str(tmp_path), 0)
+    assert cpu[cpu.index("--device") + 1] == "cpu"
