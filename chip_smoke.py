@@ -185,7 +185,24 @@ Phases, each printed as it runs; any failure exits non-zero:
    gap over 3 intervals, ``clock_sync.json`` one entry per child pid, the
    supervisor's and each child's trace parts, no SLO alert.  No process
    of the phase is left running.  The phase's seconds are printed
-   (budget 150 s).
+   (budget 150 s);
+16. the model variants on phase 7's split and width, run after phase 12:
+   K1 (B = 1, 8, 1280) and K2 (B = 1, 8, 1344) against their plain
+   versions at T = 1, 2 and 3 in both storages, timed and bounded at
+   manet's T = 2, batch-invariant at B = 40; (a) the transformer (8
+   heads, 2 layers): XE, its profiled step, the prefix decode against
+   the full buffer on 16 greedy rows (logits within 1e-4 of max(1,
+   max|logit|), tokens equal), fused CST (scb-sample), the beam-5 eval
+   of the result, bfloat16 XE and the serve CLI's refusal, no kernel
+   launched; (b) manet: XE on K1, fused CST on K2 at T = 2 and 16
+   requests through the serve CLI's backend equal to the offline
+   decode; (c) the 2-layer LSTM: the fused cell refused, XE on K1, 16
+   requests on the reference cell with K1; (d) the pooled LSTM: XE, no
+   launch; (e) ``--remat_cell`` 0 against 1: XE ms/step and peak memory
+   with and without K1, and one step's gradients within 1e-6.  Phases
+   7-12 run ``--remat_cell 0`` (``stage_args``); phase 16 counts K1
+   twice a teacher-forced step under ``--remat_cell 1`` (the recompute).
+   The phase's seconds are printed (budget 150 s).
 
 Each serving phase sets every kernel's launch count to 0 just before it
 and reads the counts just after; a kernel of the path launched other
@@ -197,8 +214,9 @@ dispatched; the fused path builds no host reward.
 
 Output: phase lines as they run; then a JSON object with one entry per
 kernel and storage dtype (``storage``; times at the serving batch B = 8,
-every measured batch under ``by_batch``; launches of phases 4-7, 9, 10,
-12, 13, 14 and 15 for float32, of phases 8, 11 and 14g for bfloat16); then
+every measured batch under ``by_batch``, phase 16's under ``T2/<B>``;
+launches of phases 4-7, 9, 10 and 12-16 for float32, of phases 8, 11
+and 14g for bfloat16); then
 the card line (``nvidia-smi``
 name and power limit); and last ``{"ok": true, "device": ...}``.
 Without a CUDA device, or run outside a checkout of the repository, the
@@ -440,33 +458,34 @@ def bound_ms(n_bytes: float, n_ops: float,
             else (by_ops, "operations"))
 
 
-def k1_bound(b: int, elem: int = 4):
+def k1_bound(b: int, elem: int = 4, t: int = T_MEM):
     """K1's bound with q, proj_mem, memory, ctx and w in ``elem``-byte
-    storage (score_v float32)."""
-    n_bytes = (elem * (b * A + b * T_MEM * A + b * T_MEM * H + b * H
-                       + b * T_MEM) + 4 * A)
-    return bound_ms(n_bytes, b * (4 * T_MEM * A + 5 * T_MEM + 2 * T_MEM * H),
+    storage (score_v float32), over a memory of ``t`` steps."""
+    n_bytes = (elem * (b * A + b * t * A + b * t * H + b * H + b * t)
+               + 4 * A)
+    return bound_ms(n_bytes, b * (4 * t * A + 5 * t + 2 * t * H),
                     FP32_OPS_PER_S if elem == 4 else BF16_OPS_PER_S)
 
 
-def k2_bound(b: int, elem: int = 4):
+def k2_bound(b: int, elem: int = 4, t: int = T_MEM):
     """K2's bound with every operand but score_v in ``elem``-byte storage
-    (the gate weights 12.6 MB in float32, 6.3 MB in bfloat16)."""
-    n_bytes = (elem * (b * (E + 2 * H + A) + b * T_MEM * (A + H)
+    (the gate weights 12.6 MB in float32, 6.3 MB in bfloat16), over a
+    memory of ``t`` steps."""
+    n_bytes = (elem * (b * (E + 2 * H + A) + b * t * (A + H)
                        + (E + 2 * H) * 4 * H + 4 * H + 2 * b * H) + 4 * A)
-    n_ops = (b * (4 * T_MEM * A + 5 * T_MEM + 2 * T_MEM * H)
+    n_ops = (b * (4 * t * A + 5 * t + 2 * t * H)
              + 2 * b * (E + 2 * H) * 4 * H + 10 * b * H)
     return bound_ms(n_bytes, n_ops,
                     FP32_OPS_PER_S if elem == 4 else BF16_OPS_PER_S)
 
 
-def attention_inputs(b: int, gen):
+def attention_inputs(b: int, gen, t: int = T_MEM):
     import torch
 
     def r(*shape):
         return torch.randn(*shape, generator=gen).cuda()
 
-    return r(b, A), r(b, T_MEM, A), r(b, T_MEM, H), r(A) / A ** 0.5
+    return r(b, A), r(b, t, A), r(b, t, H), r(A) / A ** 0.5
 
 
 def check_k1(b: int, attn, gen, flush, backward: bool = False) -> dict:
@@ -482,7 +501,7 @@ def check_k1(b: int, attn, gen, flush, backward: bool = False) -> dict:
     q, pm, mem, v = attn
     if backward:
         g_ctx = torch.randn(b, H, generator=gen).cuda()
-        g_w = torch.randn(b, T_MEM, generator=gen).cuda()
+        g_w = torch.randn(b, pm.shape[1], generator=gen).cuda()
         leaves = [t.clone().requires_grad_() for t in attn]
         ctx, w = k1.fused_additive_attention(*leaves)
         torch.autograd.backward([ctx, w], [g_ctx, g_w])
@@ -495,7 +514,7 @@ def check_k1(b: int, attn, gen, flush, backward: bool = False) -> dict:
     ctx_p, w_p = k1.additive_attention_plain(q, pm, mem, v)
     err = max((ctx - ctx_p).abs().max().item(),
               (w - w_p).abs().max().item())
-    bound, by = k1_bound(b)
+    bound, by = k1_bound(b, t=pm.shape[1])
     k, p = (timed(lambda: k1.fused_additive_attention(q, pm, mem, v), flush),
             timed(lambda: k1.additive_attention_plain(q, pm, mem, v), flush))
     m = {"max_abs_err": err, "ms": k["ms"], "ms_is": "profiler",
@@ -534,7 +553,7 @@ def check_k2(b: int, attn, gen, flush) -> dict:
     c_p, h_p = k2.decode_cell_plain(*args)
     err = max((c_k - c_p).abs().max().item(),
               (h_k - h_p).abs().max().item())
-    bound, by = k2_bound(b)
+    bound, by = k2_bound(b, t=pm.shape[1])
     xin = torch.cat([x, torch.randn(b, H, device="cuda"), h], dim=-1)
     k, p, lib = (timed(lambda: k2.fused_decode_cell(*args), flush,
                        trace_graph=True),
@@ -778,7 +797,9 @@ def training_kernel_checks(res) -> None:
 
 def stage_args(*extra) -> list:
     """Train-CLI arguments of phase 7: full MSR-VTT width, the reference's
-    batch (64 videos x 20 captions) and optimiser."""
+    batch (64 videos x 20 captions) and optimiser, with ``--remat_cell
+    0`` (the step phases 7-12 have always measured: K1 once a
+    teacher-forced step; phase 16 measures the CLI's default of 1)."""
     return ["--synthetic_videos", "6513", "--synthetic_val_videos", "497",
             "--synthetic_rich_vocab", "8000", "--captions_per_video", "20",
             "--feat_shapes", "28x2048,1x4096", "--synthetic_seed", "0",
@@ -788,7 +809,8 @@ def stage_args(*extra) -> list:
             "--decode_kernel", "fused", "--batch_size", "64",
             "--seq_per_img", "20", "--optim", "adam",
             "--learning_rate", "2e-4", "--grad_clip", "10",
-            "--decode_chunk", str(CHUNK), "--seed", "0", *extra]
+            "--decode_chunk", str(CHUNK), "--seed", "0",
+            "--remat_cell", "0", *extra]
 
 
 def timed_steps(trainer, n: int, check) -> list:
@@ -1217,7 +1239,7 @@ def check_k1_bf16(b: int, attn, gen, flush, backward: bool = False) -> dict:
     torch.cuda.synchronize()
     err, tol, ok, differ = bf16_errors(got,
                                        k1.additive_attention_plain(*args))
-    bound, by = k1_bound(b, 2)
+    bound, by = k1_bound(b, 2, pm.shape[1])
     k, p = (timed(lambda: k1.fused_additive_attention(*args), flush),
             timed(lambda: k1.additive_attention_plain(*args), flush))
     m = {"max_abs_err": err, "tol": tol, "ok": ok, "differ": differ,
@@ -1226,7 +1248,8 @@ def check_k1_bf16(b: int, attn, gen, flush, backward: bool = False) -> dict:
          "bound_by": by, "library_ms": None, "kernel": k, "plain": p}
     if backward:
         g_ctx = torch.randn(b, H, generator=gen).cuda().to(torch.bfloat16)
-        g_w = torch.randn(b, T_MEM, generator=gen).cuda().to(torch.bfloat16)
+        g_w = torch.randn(b, pm.shape[1],
+                          generator=gen).cuda().to(torch.bfloat16)
         leaves = [t.clone().requires_grad_() for t in args]
         torch.autograd.backward(list(k1.fused_additive_attention(*leaves)),
                                 [g_ctx, g_w])
@@ -1262,7 +1285,7 @@ def check_k2_bf16(b: int, attn, gen, flush) -> dict:
     torch.cuda.synchronize()
     err, tol, ok, differ = bf16_errors(got, k2.decode_cell_plain(*args),
                                        ulps=2)
-    bound, by = k2_bound(b, 2)
+    bound, by = k2_bound(b, 2, pm.shape[1])
     xin = torch.cat([args[0], *to_bf16(torch.randn(b, H, device="cuda")),
                      args[2]], dim=-1)
     k, p, lib = (timed(lambda: k2.fused_decode_cell(*args), flush,
@@ -1280,12 +1303,13 @@ def check_k2_bf16(b: int, attn, gen, flush) -> dict:
                 k2.fused_decode_cell, args, 6) if b == 40 else None)}
 
 
-def report_bf16(name: str, b: int, m: dict) -> None:
+def report_bf16(name: str, b: int, m: dict, label: str = "") -> None:
     """Print one bfloat16 kernel check; fail on any disagreement."""
     extra = "".join(f" {key}={m[key]}" for key in
                     ("grad_bitwise", "batch_invariant", "backward_ms",
                      "backward_graph_ms") if m.get(key) is not None)
-    print(f"kernel {name} bfloat16 B={b}: max_abs_err={m['max_abs_err']:.3e}"
+    print(f"kernel {name} bfloat16 B={b}{label}: "
+          f"max_abs_err={m['max_abs_err']:.3e}"
           f" (tolerance, in bfloat16 ulps of the output's magnitude: "
           f"{m['tol']:.3e}; outputs that differ: {m['differ']:.3e}) "
           f"ms={m['ms']:.6f} ({m['ms_is']}) plain_ms={m['plain_ms']:.6f} "
@@ -3457,6 +3481,570 @@ def process_fleet_phase(greedy_caps, ref_caps) -> dict:
     return total
 
 
+# Phase 16: the model variants at phase 7's width and split.  Checkpoints
+# go here and are removed at the phase's end.
+VARIANT_ROOT = os.path.join(HERE, "checkpoints", "chip_smoke_variants")
+# The transformer at MSR-VTT's width (8 heads, 2 layers); manet's
+# memory: one token per feature stream.
+TX_ARGS = ("--model_type", "transformer", "--num_heads", "8",
+           "--num_tx_layers", "2", "--pallas_attention", "0",
+           "--decode_kernel", "reference")
+T_MANET = 2
+VARIANTS_BUDGET_S = 150.0
+# Prefix decode against the full-buffer decode on the card: logits within
+# this share of max(1, max|logit|) (two GEMM shapes, one function).
+PREFIX_TOL = 1e-4
+
+
+def variant_kernel_checks() -> dict:
+    """Phase 16 (b), the kernels at manet's few time steps: K1 at B = 1, 8,
+    1280 and K2 at B = 1, 8, 1344, float32 and bfloat16, each against its
+    plain version at T = 1, 2 and 3 (the float32 and bfloat16 tolerances
+    of phases 3 and 8); at T = 2 timed and bounded as in phases 3 and 8
+    (K1's gradients at 1280 too), and both bitwise batch-invariant at B =
+    40.  -> {storage: {kernel: {"T2/<B>": measurement}}}."""
+    import torch
+
+    from cst_captioning_tpu_torch.ops import attention_kernel as k1
+    from cst_captioning_tpu_torch.ops import decode_cell_kernel as k2
+
+    flush = torch.empty(FLUSH_BYTES // 4, device="cuda")
+    gen = torch.Generator().manual_seed(1616)
+    out = {"float32": {"K1": {}, "K2": {}}, "bfloat16": {"K1": {}, "K2": {}}}
+
+    def k2_args(b, attn):
+        q, pm, mem, v = attn
+        x = torch.randn(b, E, generator=gen).cuda()
+        c = torch.randn(b, H, generator=gen).cuda()
+        h = torch.tanh(torch.randn(b, H, generator=gen)).cuda()
+        wg = (torch.randn(E + 2 * H, 4 * H, generator=gen)
+              / (E + H) ** 0.5).cuda()
+        bias = (0.1 * torch.randn(4 * H, generator=gen)).cuda()
+        return (x, c, h, q, pm, mem, v, wg, bias)
+
+    def bf16(args):
+        return tuple(a if a.dim() == 1 and a.shape[0] == A else
+                     a.to(torch.bfloat16) for a in args)
+
+    for t in (1, 3):
+        for b1, b2 in ((1, 1), (8, 8), (TRAIN_ROWS, ROLLOUT_ROWS)):
+            for name, b, fn, plain, ulps in (
+                    ("K1", b1, k1.fused_additive_attention,
+                     k1.additive_attention_plain, 1),
+                    ("K2", b2, k2.fused_decode_cell, k2.decode_cell_plain,
+                     2)):
+                attn = attention_inputs(b, gen, t)
+                args = attn if name == "K1" else k2_args(b, attn)
+                got, want = fn(*args), plain(*args)
+                err = max((g - w).abs().max().item()
+                          for g, w in zip(got, want))
+                err_b, tol_b, ok_b, _ = bf16_errors(
+                    fn(*bf16(args)), plain(*bf16(args)), ulps)
+                print(f"kernel {name} T={t} B={b}: max_abs_err float32 "
+                      f"{err:.3e} (tolerance {TOL}), bfloat16 {err_b:.3e} "
+                      f"(tolerance {tol_b:.3e})")
+                if err > TOL or not ok_b:
+                    fail(f"{name} at T={t}, B={b} disagrees with its plain "
+                         f"version: float32 {err:.3e}, bfloat16 {err_b:.3e}")
+    for b1, b2 in ((1, 1), (8, 8), (TRAIN_ROWS, ROLLOUT_ROWS)):
+        train_rows = b1 == TRAIN_ROWS
+        attn = attention_inputs(b1, gen, T_MANET)
+        m = check_k1(b1, attn, gen, flush, backward=train_rows)
+        out["float32"]["K1"][f"T2/{b1}"] = m
+        report_check("K1", b1, m, f" T={T_MANET}")
+        m = check_k1_bf16(b1, attn, gen, flush, backward=train_rows)
+        out["bfloat16"]["K1"][f"T2/{b1}"] = m
+        report_bf16("K1", b1, m, f" T={T_MANET}")
+        attn = attention_inputs(b2, gen, T_MANET)
+        m = check_k2(b2, attn, gen, flush)
+        out["float32"]["K2"][f"T2/{b2}"] = m
+        report_check("K2", b2, m, f" T={T_MANET}")
+        m = check_k2_bf16(b2, attn, gen, flush)
+        out["bfloat16"]["K2"][f"T2/{b2}"] = m
+        report_bf16("K2", b2, m, f" T={T_MANET}")
+    attn = attention_inputs(40, gen, T_MANET)
+    inv = {}
+    for name, fn, args, per_row in (
+            ("K1", k1.fused_additive_attention, attn, 3),
+            ("K2", k2.fused_decode_cell, k2_args(40, attn), 6)):
+        for dtype, a in (("float32", args), ("bfloat16", bf16(args))):
+            inv[f"{name} {dtype}"] = bf16_batch_invariant(fn, a, per_row)
+            out[dtype][name]["T2/8"]["batch_invariant_b40"] = \
+                inv[f"{name} {dtype}"]
+    print(f"kernels at T={T_MANET}, B=40: bitwise batch-invariant {inv}")
+    if not all(inv.values()):
+        fail(f"a kernel is not batch-invariant at T={T_MANET}: {inv}")
+    return out
+
+
+def variant_trainer(splits, name: str, *extra):
+    """A ``Trainer`` of phase 7's arguments (``stage_args``) with ``extra``
+    after them (argparse keeps the last value), checkpoints under
+    ``VARIANT_ROOT/name``."""
+    from cst_captioning_tpu_torch import train
+    from cst_captioning_tpu_torch.training.trainer import Trainer
+
+    return Trainer(train.parse_args(stage_args(
+        "--checkpoint_path", os.path.join(VARIANT_ROOT, name), *extra)),
+        splits)
+
+
+def save_stage(trainer, name: str) -> str:
+    from cst_captioning_tpu_torch.training import checkpoint
+
+    path = os.path.join(VARIANT_ROOT, name)
+    checkpoint.CheckpointManager(path).save(
+        trainer.step, trainer.checkpoint_payload(), score=0.0)
+    return path
+
+
+def expect_launches(k1_per_step: int, k2_per_rollout_step: int = 0):
+    """A ``timed_steps`` check: K1 exactly ``k1_per_step`` a completed
+    step, K2 ``k2_per_rollout_step`` a rollout step (0: none), nothing in
+    bfloat16, every loss and reward finite."""
+    import numpy as np
+
+    def check(done, launches):
+        k1 = launches["fused_additive_attention"]
+        k2 = launches["fused_decode_cell"]
+        want_k2 = sum(k2_per_rollout_step * float(m.get("rollout_steps", 0))
+                      for _, m in done)
+        if (k1 != k1_per_step * len(done) or k2 != want_k2
+                or launches["fused_additive_attention/bfloat16"]
+                or launches["fused_decode_cell/bfloat16"]):
+            fail(f"launches {launches} in {len(done)} steps: K1 "
+                 f"{k1_per_step} a step and K2 {want_k2} expected")
+        for _, m in done:
+            if not all(np.isfinite(float(m[k])) for k in ("loss", "reward")
+                       if k in m):
+                fail(f"a variant step is not finite: {m}")
+
+    return check
+
+
+def split_feats(split, n: int):
+    """The first ``n`` videos of ``split``: (video ids, feats on the
+    card, feats_for(video id) -> the video's arrays)."""
+    import numpy as np
+    import torch
+
+    ids = list(split.video_ids[:n])
+    arrays = split.features(np.arange(n))
+    index = {v: i for i, v in enumerate(ids)}
+    return (ids, [torch.from_numpy(np.ascontiguousarray(a)).cuda()
+                  for a in arrays],
+            lambda v: (None if v not in index
+                       else [a[index[v]] for a in arrays]))
+
+
+def serve_split(model, split, vocab, n: int, feats_for=None) -> tuple:
+    """``n`` greedy requests of ``split``'s first videos through
+    ``ServingEngine`` and ``CaptionServer``, their features from
+    ``feats_for`` (a serve backend's; default ``split``'s) -> ({video id:
+    served caption}, {video id: the offline greedy decode's caption of
+    ``split``'s arrays}, engine stats, launches)."""
+    import torch
+
+    from cst_captioning_tpu_torch.ops import (launch_counts,
+                                              launch_counts_by_dtype,
+                                              reset_launch_counts)
+    from cst_captioning_tpu_torch.serving.buckets import parse_buckets
+    from cst_captioning_tpu_torch.serving.engine import ServingEngine
+    from cst_captioning_tpu_torch.serving.server import CaptionServer
+
+    ids, feats, own = split_feats(split, n)
+    feats_for = feats_for or own
+    engine = ServingEngine(
+        model, list(zip(split.feat_times, split.feat_dims)),
+        max_len=MAX_LEN, beam_size=1, decode_chunk=CHUNK,
+        bucket_sizes=parse_buckets("1,4,8"))
+    lines = [json.dumps({"id": i, "video_id": v}) + "\n"
+             for i, v in enumerate(ids)]
+    sink = io.StringIO()
+    reset_launch_counts()
+    rc = CaptionServer(engine, vocab, feats_for, out=sink).run_stdin(
+        lines=lines)
+    torch.cuda.synchronize()
+    launches = {**launch_counts(), **launch_counts_by_dtype()}
+    got = {r["video_id"]: r.get("caption") for r in
+           map(json.loads, sink.getvalue().splitlines())}
+    if rc != 0:
+        fail(f"phase 16: the server exited {rc}")
+    from cst_captioning_tpu_torch.ops.sampling import greedy_decode
+    want = dict(zip(ids, vocab.decode_batch(greedy_decode(
+        model, feats, MAX_LEN, decode_chunk=CHUNK).cpu().numpy())))
+    return got, want, engine.stats(), launches
+
+
+def prefix_against_full(model, feats) -> dict:
+    """The transformer's greedy rollout over the prefix ``[0, pos + 1)``
+    against the same rollout over the whole buffer (the reference's
+    decode), on the card: the largest logit difference over max(1,
+    max|logit|), whether every argmax agrees, and each rollout's
+    milliseconds after one untimed rollout of each, and the full-buffer
+    rollout's tokens."""
+    import torch
+
+    out = {}
+    logits = {}
+    with torch.no_grad():
+        memory, _, pooled = model.encode(feats)
+        for full in (False, True, False, True):
+            carry = model.init_carry(pooled, MAX_LEN)
+            prev = torch.zeros(pooled.shape[0], dtype=torch.long,
+                               device=pooled.device)
+            steps = []
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(MAX_LEN):
+                carry, lg = model.tx.decode(carry, prev[:, None], memory,
+                                            pooled, full=full)
+                steps.append(lg[:, 0])
+                prev = lg[:, 0].argmax(-1)
+            torch.cuda.synchronize()
+            out["full_ms" if full else "prefix_ms"] = (
+                time.perf_counter() - t0) * 1e3
+            logits[full] = torch.stack(steps, 1)
+        diff = (logits[False] - logits[True]).abs().max().item()
+        out["err"] = diff / max(1.0, logits[True].abs().max().item())
+        out["same_tokens"] = bool(torch.equal(logits[False].argmax(-1),
+                                              logits[True].argmax(-1)))
+        out["full_tokens"] = logits[True].argmax(-1)
+    return out
+
+
+def tx_eval_captions_checked(ck: str, eval_argv: list) -> None:
+    """The transformer's eval held to the reference's decode: the
+    checkpoint ``ck`` loaded as the eval CLI loads it, its prefix decode
+    held to the full buffer over the first 16 val videos, and the eval
+    CLI's beam-1 captions of those videos equal to the words of that
+    full-buffer greedy rollout."""
+    import torch
+
+    from cst_captioning_tpu_torch import eval as port_eval
+
+    model, vocab, val, _ = port_eval.load_checkpoint_model(
+        ck, torch.device("cuda"))
+    ids, feats, _ = split_feats(val, 16)
+    pf = prefix_against_full(model, feats)
+    want = dict(zip(ids, vocab.decode_batch(pf["full_tokens"].cpu())))
+    argv = list(eval_argv)
+    argv[argv.index("--beam_size") + 1] = "1"
+    got = {p["image_id"]: p["caption"] for p in port_eval.evaluate(
+        port_eval.parse_args(argv))["predictions"]}
+    same = sum(got[v] == want[v] for v in ids)
+    print(f"eval transformer beam 1 against the full-buffer greedy rollout "
+          f"of the checkpoint: {same} of {len(ids)} captions equal; prefix "
+          f"vs full logits {pf['err']:.3e}, tokens equal "
+          f"{pf['same_tokens']}; first: {want[ids[0]]!r}")
+    if pf["err"] > PREFIX_TOL or not pf["same_tokens"] or same != len(ids):
+        fail("phase 16: the transformer's eval captions differ from its "
+             "full-buffer greedy decode")
+
+
+def variants_phase(splits) -> dict:
+    """Phase 16: the model variants at phase 7's width and split (E = H =
+    A = 512, 64 x 20 a batch, ``max_length`` 30), through the train CLI's
+    parser and ``Trainer``, the eval CLI and the serve CLI's backend:
+    (a) the transformer (8 heads, 2 layers): 2 + 10 XE steps, its
+    profiled step, the prefix decode against the full buffer over 16
+    greedy rows (and both timed at 1280), 1 + 5 fused CST steps
+    (scb-sample), the beam-5 eval of
+    the result (497 val videos in batches of 64), 3 bfloat16 XE steps and
+    the serve CLI's refusal; no K1 or K2 launch; (b) manet: the kernels
+    at T = 1, 2, 3, 2 + 5 XE steps on K1, 1 + 3 fused CST steps on K2
+    and 16 greedy requests through the serve CLI's backend, equal to the
+    offline decode; (c) the 2-layer LSTM: the fused cell refused, 2 + 5
+    XE steps on K1 and 16 requests on the reference cell with K1; (d) the
+    pooled LSTM: 2 + 5 XE steps, no launch; (e) ``--remat_cell`` 0
+    against 1: XE ms/step and peak memory with and without K1, a
+    profiled step of each with K1, and one step's gradients within
+    1e-6.  -> ({(kernel, storage): launches},
+    the T = 2 measurements)."""
+    import contextlib
+    import shutil
+
+    import torch
+
+    from cst_captioning_tpu_torch import eval as port_eval
+    from cst_captioning_tpu_torch import serve, train
+    from cst_captioning_tpu_torch.ops import (launch_counts,
+                                              launch_counts_by_dtype,
+                                              reset_launch_counts)
+    from cst_captioning_tpu_torch.ops.losses import cross_entropy_loss
+    from cst_captioning_tpu_torch.training.trainer import (Trainer,
+                                                           build_model)
+    from cst_captioning_tpu_torch.weights import init_like_flax_
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(VARIANT_ROOT, ignore_errors=True)
+    rows = TRAIN_BATCH * TRAIN_SEQ
+    total = {("K1", "float32"): 0, ("K2", "float32"): 0,
+             ("K1", "bfloat16"): 0, ("K2", "bfloat16"): 0}
+
+    def add(steps):
+        for _, _, launches in steps:
+            for (kernel, dtype) in total:
+                name = ("fused_additive_attention" if kernel == "K1"
+                        else "fused_decode_cell")
+                total[(kernel, dtype)] += launches[f"{name}/{dtype}"]
+
+    def train_steps(trainer, name, warm, n, check):
+        add(timed_steps(trainer, warm, check))
+        steps = timed_steps(trainer, n, check)
+        add(steps)
+        return report_stage(name, steps, rows), steps
+
+    measured = variant_kernel_checks()
+    t_kernels = time.perf_counter() - t_phase
+
+    # (a) The transformer.
+    none = expect_launches(0)
+    xe = variant_trainer(splits, "tx_xe", *TX_ARGS)
+    n_params = sum(p.numel() for p in xe.model.parameters())
+    print(f"variants transformer: {n_params} parameters "
+          f"({xe.model.tx.max_len} positions)")
+    tx_xe_ms, _ = train_steps(xe, "transformer XE", 2, 10, none)
+    prof = device_profile(xe.iteration, iters=1)
+    print(f"train transformer XE: profiled step: device time "
+          f"{prof['ms']:.3f} ms (summed), busy {prof['busy_ms']:.3f} ms of "
+          f"{prof['wall_ms']:.3f} ms wall = busy share "
+          f"{prof['busy_ms'] / prof['wall_ms']:.3f}; top kernels (name, ms, "
+          "launches): " + "; ".join(f"{k} {ms:.3f} {n:.0f}"
+                                    for k, ms, n in prof["top"]))
+    _, feats64, _ = split_feats(splits[1], TRAIN_BATCH)
+    for n, feats in ((16, [f[:16] for f in feats64]),
+                     (rows, [f.repeat_interleave(TRAIN_SEQ, 0)
+                             for f in feats64])):
+        pf = prefix_against_full(xe.model, feats)
+        print(f"transformer prefix decode vs the full buffer, {n} greedy "
+              f"rows x {MAX_LEN} steps: logits max diff / max(1, "
+              f"max|logit|) {pf['err']:.3e}, tokens equal "
+              f"{pf['same_tokens']}; rollout {pf['prefix_ms']:.3f} ms "
+              f"prefix, {pf['full_ms']:.3f} ms full buffer (host clock)")
+        # The check is on the 16 rows; at the rollout batch the two
+        # rollouts are timed (a near-tie may round to another argmax).
+        if n == 16 and (pf["err"] > PREFIX_TOL or not pf["same_tokens"]):
+            fail(f"phase 16: the transformer's prefix decode differs from "
+                 f"the full-buffer decode (tolerance {PREFIX_TOL})")
+    tx_start = save_stage(xe, "tx_xe")
+    xe.close()
+    del xe
+    t0 = time.perf_counter()
+    cst = variant_trainer(splits, "tx_cst", *TX_ARGS, "--use_rl", "1",
+                          "--rl_baseline", "scb-sample", "--learning_rate",
+                          "2e-5", "--start_from", tx_start)
+    print(f"variants transformer CST: trainer built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    tx_cst_ms, cst_steps = train_steps(cst, "transformer CST fused "
+                                       "scb-sample", 1, 5, none)
+    ms = phase_medians(cst_steps)
+    print(f"train transformer CST phases (median ms, CUDA events): rollout "
+          f"{ms['rollout']:.3f} ({rows} rows, steps "
+          f"{[float(m['rollout_steps']) for _, d, _ in cst_steps for _, m in d]}"
+          f"), on-device reward {ms['reward']:.3f}, grad {ms['grad']:.3f}")
+    tx_ck = save_stage(cst, "tx_cst")
+    cst.close()
+    del cst
+    eval_argv = ["--checkpoint_path", tx_ck, "--beam_size", str(EVAL_BEAM),
+                 "--eval_batch_size", str(EVAL_BATCH), "--max_length",
+                 str(MAX_LEN), "--decode_chunk", str(CHUNK),
+                 "--decode_kernel", "reference"]
+    reset_launch_counts()
+    out = port_eval.evaluate(port_eval.parse_args(eval_argv))
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    print(f"eval transformer beam {EVAL_BEAM}: {out['videos']} videos in "
+          f"batches of {EVAL_BATCH}; decode {out['decode_s']:.3f} s = "
+          f"{out['videos'] / out['decode_s']:.1f} videos/s "
+          f"({out['decode_steps']} beam steps); scores " + ", ".join(
+              f"{k} {v:.6f}" for k, v in out["scores"].items())
+          + f"; launches {launches}")
+    if (out["videos"] != splits[1].num_videos or any(launches.values())
+            or not all(0.0 <= v < 20.0 for v in out["scores"].values())):
+        fail(f"phase 16: the transformer's eval: {out['scores']}, "
+             f"launches {launches}")
+    caps = [p["caption"].split() for p in out["predictions"]]
+    print(f"eval transformer beam {EVAL_BEAM} captions: "
+          f"{sum(not c for c in caps)} of {len(caps)} empty, mean length "
+          f"{sum(map(len, caps)) / len(caps):.2f} words, mean distinct "
+          f"words {sum(len(set(c)) for c in caps) / len(caps):.2f}; first "
+          "three: " + " | ".join(p["caption"] for p in out["predictions"][:3]))
+    tx_eval_captions_checked(tx_ck, eval_argv)
+    bf = variant_trainer(splits, "tx_bf16", *TX_ARGS, "--use_bfloat16", "1")
+    if bf.model.dtype != torch.bfloat16:
+        fail("phase 16: the bfloat16 transformer computes in "
+             f"{bf.model.dtype}")
+    tx_bf16_ms, _ = train_steps(bf, "transformer XE bf16", 0, 3, none)
+    bf.close()
+    del bf
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        rc = serve.main(["--checkpoint_path", tx_ck, "--decode_kernel",
+                         "reference"])
+    print(f"serve --checkpoint_path <transformer>: exit {rc}; stderr "
+          f"{err.getvalue().strip()!r}")
+    if rc == 0 or "per-row decoder state" not in err.getvalue():
+        fail("phase 16: the serve CLI did not refuse the transformer with "
+             "the reference's reason")
+
+    # (b) manet: K1 and K2 over a memory of T = 2.
+    manet = ("--fusion_type", "manet", "--remat_cell", "1")
+    xe = variant_trainer(splits, "manet_xe", *manet)
+    if xe.model.encoder.fusion != "modality":
+        fail("phase 16: --fusion_type manet did not build the modality "
+             "fusion")
+    manet_xe_ms, _ = train_steps(xe, "manet XE (K1, remat)", 2, 5,
+                                 expect_launches(2 * MAX_LEN))
+    start = save_stage(xe, "manet_xe")
+    xe.close()
+    del xe
+    cst = variant_trainer(splits, "manet_cst", *manet, "--use_rl", "1",
+                          "--rl_baseline", "greedy", "--learning_rate",
+                          "2e-5", "--start_from", start)
+    manet_cst_ms, cst_steps = train_steps(
+        cst, "manet CST fused (K2 at T=2)", 1, 3,
+        expect_launches(2 * MAX_LEN, 2))
+    ms = phase_medians(cst_steps)
+    print(f"train manet CST phases (median ms, CUDA events): rollout "
+          f"{ms['rollout']:.3f} ({ROLLOUT_ROWS} rows), on-device reward "
+          f"{ms['reward']:.3f}, grad {ms['grad']:.3f}")
+    manet_ck = save_stage(cst, "manet_cst")
+    cst.close()
+    del cst
+    opt = serve.parse_args(["--checkpoint_path", manet_ck, "--beam_size",
+                            "1", "--decode_kernel", "fused", "--max_length",
+                            str(MAX_LEN), "--decode_chunk", str(CHUNK)])
+    model, vocab, _, feats_for = serve.build_backend(opt)
+    got, want, stats, launches = serve_split(model, splits[1], vocab, 16,
+                                             feats_for)
+    same = sum(got.get(v) == c for v, c in want.items())
+    print(f"serve --checkpoint_path <manet> --decode_kernel fused: 16 "
+          f"requests, {same} captions equal to the offline decode; "
+          f"decode_steps {stats['decode_steps']}, "
+          f"decode_ms_per_step {stats['decode_ms_per_step']:.4f}; "
+          f"launches {launches}")
+    if same != 16:
+        fail("phase 16: manet's served captions differ from the offline "
+             "decode")
+    check_launches("phase 16 manet serving", "K2",
+                   launches["fused_decode_cell"], stats["decode_steps"], 2)
+    total[("K2", "float32")] += launches["fused_decode_cell/float32"]
+    del model
+
+    # (c) The 2-layer LSTM.
+    try:
+        variant_trainer(splits, "lstm2_fused", "--num_layers", "2")
+        fail("phase 16: --decode_kernel fused took the 2-layer LSTM")
+    except ValueError as e:
+        print(f"2-layer LSTM with --decode_kernel fused: refused at "
+              f"construction ({e})")
+    lstm2 = ("--num_layers", "2", "--decode_kernel", "reference",
+             "--remat_cell", "1")
+    xe = variant_trainer(splits, "lstm2_xe", *lstm2)
+    lstm2_ms, _ = train_steps(xe, "2-layer LSTM XE (K1, remat)", 2, 5,
+                              expect_launches(2 * MAX_LEN))
+    got, want, stats, launches = serve_split(xe.model, splits[1], xe.vocab,
+                                             16)
+    same = sum(got.get(v) == c for v, c in want.items())
+    print(f"serve 2-layer LSTM, reference cell with K1: 16 requests, "
+          f"{same} captions equal to the offline decode; decode_steps "
+          f"{stats['decode_steps']}; launches {launches}")
+    if same != 16:
+        fail("phase 16: the 2-layer LSTM's served captions differ from the "
+             "offline decode")
+    check_launches("phase 16 2-layer serving", "K1",
+                   launches["fused_additive_attention"],
+                   stats["decode_steps"], 1)
+    total[("K1", "float32")] += launches["fused_additive_attention/float32"]
+    xe.close()
+    del xe
+
+    # (d) The pooled LSTM (no attention: no kernel).
+    xe = variant_trainer(splits, "pooled_xe", "--use_attention", "0",
+                         "--decode_kernel", "reference", "--remat_cell", "1")
+    pooled_ms, _ = train_steps(xe, "pooled LSTM XE", 2, 5, none)
+    xe.close()
+    del xe
+
+    # (e) --remat_cell 0 against 1, with and without K1.
+    remat = {}
+    for k1_on in ("1", "0"):
+        for flag in ("0", "1"):
+            per = MAX_LEN * (1 + int(flag)) if k1_on == "1" else 0
+            xe = variant_trainer(splits, f"remat{flag}_k1{k1_on}",
+                                 "--remat_cell", flag, "--pallas_attention",
+                                 k1_on)
+            add(timed_steps(xe, 2, expect_launches(per)))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            steps = timed_steps(xe, 5, expect_launches(per))
+            add(steps)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            remat[(k1_on, flag)] = (report_stage(
+                f"XE --remat_cell {flag} --pallas_attention {k1_on}", steps,
+                rows), peak)
+            print(f"XE --remat_cell {flag} --pallas_attention {k1_on}: peak "
+                  f"device memory {peak:.3f} GiB over the timed steps")
+            if k1_on == "1":
+                prof = device_profile(xe.iteration, iters=1)
+                print(f"XE --remat_cell {flag}: profiled step: device time "
+                      f"{prof['ms']:.3f} ms (summed), busy "
+                      f"{prof['busy_ms']:.3f} ms of {prof['wall_ms']:.3f} ms "
+                      f"wall = busy share "
+                      f"{prof['busy_ms'] / prof['wall_ms']:.3f}; top kernels "
+                      "(name, ms, launches): " + "; ".join(
+                          f"{k} {ms:.3f} {n:.0f}" for k, ms, n in
+                          prof["top"]))
+            xe.close()
+            del xe
+            torch.cuda.empty_cache()
+    for k1_on in ("1", "0"):
+        (ms0, p0), (ms1, p1) = remat[(k1_on, "0")], remat[(k1_on, "1")]
+        print(f"remat cost with --pallas_attention {k1_on}: ms/step "
+              f"{ms0 * 1e3:.3f} -> {ms1 * 1e3:.3f} ({ms1 / ms0 - 1:+.1%}), "
+              f"peak {p0:.3f} -> {p1:.3f} GiB")
+    opt = train.parse_args(stage_args())
+    _, feats, _ = split_feats(splits[0], TRAIN_BATCH)
+    labels = torch.from_numpy(splits[0].labels[:rows]).long().cuda()
+    grads = {}
+    for flag in (0, 1):
+        opt.remat_cell = flag
+        model = build_model(opt, splits[0].vocab.size_with_pad,
+                            splits[0].feat_dims, splits[0].seq_length)
+        init_like_flax_(model, torch.Generator().manual_seed(16))
+        model.to(labels.device)
+        loss = cross_entropy_loss(model(
+            feats, labels, TRAIN_SEQ, train=True,
+            generator=torch.Generator(labels.device).manual_seed(17)),
+            labels)
+        loss.backward()
+        grads[flag] = {n: p.grad for n, p in model.named_parameters()
+                       if p.grad is not None}
+        del model
+    worst = max(((grads[1][n] - g).abs().max()
+                 / max(1.0, g.abs().max().item())).item()
+                for n, g in grads[0].items())
+    bitwise = all(torch.equal(grads[1][n], g) for n, g in grads[0].items())
+    print(f"remat gradients after one XE step (K1, dropout on, one "
+          f"generator seed): max |g1 - g0| / max(1, max|g0|) {worst:.3e} "
+          f"over {len(grads[0])} tensors (tolerance 1e-6); bitwise "
+          f"{bitwise}")
+    if worst > 1e-6 or grads[0].keys() != grads[1].keys():
+        fail("phase 16: --remat_cell 1 changed the gradients")
+    del grads
+    shutil.rmtree(VARIANT_ROOT, ignore_errors=True)
+    seconds = time.perf_counter() - t_phase
+    print(f"variants summary (ms/step): transformer XE {tx_xe_ms * 1e3:.3f}, "
+          f"CST {tx_cst_ms * 1e3:.3f}, XE bf16 {tx_bf16_ms * 1e3:.3f}; manet "
+          f"XE {manet_xe_ms * 1e3:.3f}, CST {manet_cst_ms * 1e3:.3f}; "
+          f"2-layer XE {lstm2_ms * 1e3:.3f}; pooled XE {pooled_ms * 1e3:.3f}")
+    print(f"variants phase: {seconds:.1f} s (kernels {t_kernels:.1f} s; "
+          f"budget {VARIANTS_BUDGET_S:.0f} s); launches "
+          + json.dumps({f"{k}/{d}": n for (k, d), n in total.items()}))
+    return total, measured
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "cst_captioning_tpu_torch")):
         print("chip_smoke: no cst_captioning_tpu_torch package beside "
@@ -3546,6 +4134,10 @@ def main() -> int:
 
     # Phase 12: train, evaluate and serve from split files.
     f_launch = files_phase(splits, e_scores, e_preds)
+
+    # Phase 16: the model variants (transformer, manet, 2-layer, pooled,
+    # --remat_cell) on phase 7's split, K1 and K2 at manet's T = 2.
+    v_launch, v_measured = variants_phase(splits)
     del splits
 
     # Phase 13: serving, the rest (streams, the cache, the ladder,
@@ -3563,27 +4155,31 @@ def main() -> int:
     proc_launch = process_fleet_phase(greedy_caps, ref_caps)
 
     # The kernels line: one entry per kernel and storage dtype.  Launches:
-    # float32 from phases 4-7, 9, 10, 12, 13, 14 and 15, bfloat16 from
-    # phases 8, 11 and 14g;
+    # float32 from phases 4-7, 9, 10, 12, 13, 14, 15 and 16, bfloat16 from
+    # phases 8, 11 and 14g (phase 16 launches none in bfloat16);
     # times at B=8, the
     # greedy serving batch (8-slot bucket), every measured batch under
     # ``by_batch``.
     launches = {
-        ("K1", "float32"): r_launch["fused_additive_attention"]
+        ("K1", "float32"): v_launch[("K1", "float32")]
+        + r_launch["fused_additive_attention"]
         + t_launch["fused_additive_attention"]
         + resume_launch["fused_additive_attention"]
         + f_launch["fused_additive_attention"] + fleet_launch["K1"]
         + proc_launch["K1"],
-        ("K2", "float32"): g_launch["fused_decode_cell"]
+        ("K2", "float32"): v_launch[("K2", "float32")]
+        + g_launch["fused_decode_cell"]
         + beam_launch["fused_decode_cell"]
         + t_launch["fused_decode_cell"] + e_launch
         + resume_launch["fused_decode_cell"]
         + f_launch["fused_decode_cell"] + rest_launch + fleet_launch["K2"]
         + proc_launch["K2"],
-        ("K1", "bfloat16"): s_launch["fused_additive_attention/bfloat16"]
+        ("K1", "bfloat16"): v_launch[("K1", "bfloat16")]
+        + s_launch["fused_additive_attention/bfloat16"]
         + bt_launch["fused_additive_attention/bfloat16"]
         + bench_launch["fused_additive_attention"],
-        ("K2", "bfloat16"): s_launch["fused_decode_cell/bfloat16"]
+        ("K2", "bfloat16"): v_launch[("K2", "bfloat16")]
+        + s_launch["fused_decode_cell/bfloat16"]
         + bt_launch["fused_decode_cell/bfloat16"]
         + bench_launch["fused_decode_cell"] + fleet_launch["K2_bf16"],
     }
@@ -3598,6 +4194,7 @@ def main() -> int:
     for (key, dtype), n in launches.items():
         name, source, replaces = meta[key]
         res = measured if dtype == "float32" else bf16_measured
+        res[key].update(v_measured[dtype][key])
         m = res[key][8]
         kernels.append({
             "name": name if dtype == "float32" else f"{name}_bf16",

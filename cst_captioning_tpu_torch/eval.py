@@ -10,8 +10,9 @@
 CLI wrote, or an exported checkpoint (``weights.py``; the reference's
 checkpoints through ``export_for_torch.py checkpoint``).  The model is
 rebuilt from the options saved in it: the architecture comes from the
-checkpoint, and of this CLI's flags only ``--max_length`` overrides it
-(the decode length).  The data are the ``--test_*`` files
+checkpoint (``--model_type``, ``--fusion_type``, the widths and depths;
+``weights.MODEL_OPT_KEYS``), and of this CLI's flags only
+``--max_length`` overrides it (the decode length).  The data are the ``--test_*`` files
 (``data/dataset.py``; the vocabulary is the test split's info json, as
 the reference's ``eval.py`` reads it); without them, the val split the
 checkpoint was trained with (its files, or its synthetic spec and seed
@@ -127,7 +128,10 @@ def load_checkpoint_model(checkpoint_path: str, device: torch.device,
     else:
         train, split = build_splits(opt, train_features=False)
         vocab = train.vocab
-    model = build_model(opt, vocab.size_with_pad, split.feat_dims)
+    pos = state.get("tx.pos_embed")
+    model = build_model(opt, vocab.size_with_pad, split.feat_dims,
+                        split.seq_length,
+                        tx_max_len=None if pos is None else pos.shape[0])
     model.load_state_dict(state)
     return model.eval().to(device), vocab, split, opt
 

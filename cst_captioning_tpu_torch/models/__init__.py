@@ -1,4 +1,5 @@
-"""Captioning model of the port (LSTM decoder, temporal fusion)."""
+"""Captioning model of the port: the attention-LSTM and Transformer
+decoders over temporal or modality fusion."""
 
 from .captioner import CaptionModel, shift_right
 

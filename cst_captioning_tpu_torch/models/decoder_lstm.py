@@ -4,8 +4,10 @@
 One decode step: embed the token, attend over the encoder memory (or
 take the pooled feature when attention is off), run the LSTM stack.  The
 vocab head lives outside the cell, in ``CaptionModel``, as in the
-reference.  With ``train=True`` and ``drop_prob`` > 0, dropout applies
-to the top layer's output ``h`` (not to the carry), as in the reference.
+reference.  Dropout applies to the top layer's output ``h`` (not to the
+carry), as in the reference, with the keep mask the caller drew
+(``keep``; ``CaptionModel.decode`` draws it before the step, as
+``--remat_cell`` needs).
 
 ``dtype`` is the compute dtype (``precision.py``): the embedding, the
 gate algebra and the carry run in it over float32 parameters, in flax
@@ -21,7 +23,7 @@ from torch import nn
 
 from ..ops.attention import AdditiveAttention
 from ..precision import compute_dtype, embed, sigmoid
-from .encoder import dropout
+from .encoder import apply_keep
 
 Carry = Tuple[Tuple[torch.Tensor, torch.Tensor], ...]  # ((c, h) per layer)
 
@@ -84,8 +86,9 @@ class DecoderCell(nn.Module):
 
     def forward(self, carry: Carry, token: torch.Tensor,
                 memory: torch.Tensor, proj_mem: torch.Tensor,
-                pooled: torch.Tensor, train: bool = False,
-                generator: Optional[torch.Generator] = None):
+                pooled: torch.Tensor, keep: Optional[torch.Tensor] = None):
+        """``keep``, when given, is the dropout mask of ``h``, drawn by the
+        caller (so a recompute applies the same one)."""
         x = embed(token, self.embed.weight, self.dtype)
         if self.attn is not None:
             context, _ = self.attn(carry[-1][1], memory, proj_mem)
@@ -96,6 +99,6 @@ class DecoderCell(nn.Module):
         for layer in self.lstm:
             layer_carry, inp = layer(carry[len(new_carry)], inp)
             new_carry.append(layer_carry)
-        if train and self.drop_prob > 0:
-            inp = dropout(inp, self.drop_prob, generator)
+        if keep is not None:
+            inp = apply_keep(inp, keep, self.drop_prob)
         return tuple(new_carry), inp

@@ -1,11 +1,15 @@
 """Multi-modality feature encoder (counterpart of the reference's
-``models/encoder.py``, ``fusion="temporal"``).
+``models/encoder.py``).
 
-Each modality's (B, T_m, D_m) features go through a Linear + ReLU; the
-per-timestep projections are concatenated along time into the attention
-memory (B, sum_m T_m, H), and the per-modality time means are
-concatenated and fused (Linear + tanh) into ``pooled`` (B, H), which
-initialises the decoder state.
+Each modality's (B, T_m, D_m) features go through a Linear + ReLU, and
+the per-modality time means are concatenated and fused (Linear + tanh)
+into ``pooled`` (B, H), which initialises the decoder state.  The
+attention memory is, by ``fusion``:
+
+- ``"temporal"``: the per-timestep projections concatenated along time,
+  (B, sum_m T_m, H);
+- ``"modality"`` (the reference's "manet" variant): the per-modality
+  time means stacked, one token per modality, (B, M, H).
 
 With ``train=True`` and ``drop_prob`` > 0, dropout applies at the
 reference's sites: ``pooled`` first, then ``memory``.  Masks come from the
@@ -25,27 +29,43 @@ from torch import nn
 
 from ..precision import compute_dtype, dense
 
+FUSIONS = ("temporal", "modality")
+
+
+def dropout_keep(shape, p: float, generator: Optional[torch.Generator],
+                 device) -> torch.Tensor:
+    """The keep mask of ``dropout``: ``uniform < 1 - p`` from
+    ``generator``, which must live on ``device``."""
+    if generator is None:
+        raise ValueError("dropout needs an explicit torch.Generator")
+    return torch.rand(shape, generator=generator, device=device) < 1.0 - p
+
+
+def apply_keep(x: torch.Tensor, keep: torch.Tensor, p: float) -> torch.Tensor:
+    """``x / (1 - p)`` where ``keep``, else 0."""
+    return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
+
 
 def dropout(x: torch.Tensor, p: float,
             generator: Optional[torch.Generator]) -> torch.Tensor:
     """flax ``nn.Dropout`` semantics: keep each element with probability
     ``1 - p`` (``uniform < 1 - p``) and scale it by ``1 / (1 - p)``.  The
     uniforms come from ``generator``, which must live on ``x``'s device."""
-    if generator is None:
-        raise ValueError("dropout needs an explicit torch.Generator")
-    keep = 1.0 - p
-    u = torch.rand(x.shape, generator=generator, device=x.device)
-    return torch.where(u < keep, x / keep, torch.zeros_like(x))
+    return apply_keep(x, dropout_keep(x.shape, p, generator, x.device), p)
 
 
 class FeatureEncoder(nn.Module):
-    """Returns (memory (B, sum_m T_m, H), pooled (B, H))."""
+    """Returns (memory (B, sum_m T_m, H) or (B, M, H), pooled (B, H))."""
 
     def __init__(self, feat_dims: Sequence[int], hidden_size: int,
-                 drop_prob: float = 0.0, dtype: torch.dtype = torch.float32):
+                 drop_prob: float = 0.0, dtype: torch.dtype = torch.float32,
+                 fusion: str = "temporal"):
         super().__init__()
         if len(feat_dims) == 0:
             raise ValueError("need at least one feature modality")
+        if fusion not in FUSIONS:
+            raise ValueError(f"unknown fusion {fusion!r}; one of {FUSIONS}")
+        self.fusion = fusion
         self.drop_prob = drop_prob
         self.dtype = compute_dtype(dtype)
         self.embed = nn.ModuleList(nn.Linear(int(d), hidden_size)
@@ -66,7 +86,8 @@ class FeatureEncoder(nn.Module):
                                  self.dtype))
             projected.append(h)                        # (B, T_m, H)
             pooled.append(h.mean(dim=1))               # (B, H)
-        memory = torch.cat(projected, dim=1)
+        memory = (torch.stack(pooled, dim=1) if self.fusion == "modality"
+                  else torch.cat(projected, dim=1))
         fused = torch.tanh(dense(torch.cat(pooled, dim=-1), self.fuse.weight,
                                  self.fuse.bias, self.dtype))
         if train and self.drop_prob > 0:

@@ -29,13 +29,16 @@ NEG_INF = -1e9
 
 
 def _map_tree(fn, tree):
+    """``fn`` over the tensor leaves of nested tuples and lists; other
+    leaves (the transformer carry's int position) pass through."""
     if isinstance(tree, (tuple, list)):
         return type(tree)(_map_tree(fn, x) for x in tree)
-    return fn(tree)
+    return fn(tree) if isinstance(tree, torch.Tensor) else tree
 
 
 def _expand_to_beams(tree, beam_size: int, batch: int):
-    """Tile each (B, ...) leaf to (B*k, ...); leave other leaves alone."""
+    """Tile each (B, ...) leaf to (B*k, ...); leave other leaves (the
+    transformer carry's 0-d position) alone."""
 
     def tile(x):
         if x.ndim >= 1 and x.shape[0] == batch:
@@ -164,7 +167,7 @@ def beam_search(model, feats, beam_size: int, max_len: int,
     batch = pooled.shape[0]
     memory, proj_mem, pooled = _expand_to_beams(
         (memory, proj_mem, pooled), beam_size, batch)
-    carry = model.init_carry(pooled)
+    carry = model.init_carry(pooled, max_len)
     step = make_decode_step(model, memory, proj_mem, pooled)
     return beam_search_tokens(step, carry, batch, beam_size, max_len,
                               length_norm=length_norm,

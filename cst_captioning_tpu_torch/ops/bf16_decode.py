@@ -69,7 +69,13 @@ def note_reference_once(reason: str) -> None:
 
 
 def _cast_carry(carry, dtype: torch.dtype):
-    return tuple((c.to(dtype), h.to(dtype)) for c, h in carry)
+    """The carry's float leaves cast to ``dtype``; the transformer carry's
+    token buffer and position keep theirs, as the reference's."""
+    if isinstance(carry, (tuple, list)):
+        return type(carry)(_cast_carry(x, dtype) for x in carry)
+    if isinstance(carry, torch.Tensor) and carry.is_floating_point():
+        return carry.to(dtype)
+    return carry
 
 
 def make_bf16_decode_step(model, memory: torch.Tensor,

@@ -160,7 +160,8 @@ def sample_captions(model, feats, max_len: int, seq_per_img: int = 1,
     proj_mem = repeat_for_captions(proj_mem, seq_per_img)
     pooled = repeat_for_captions(pooled, seq_per_img)
     step = make_decode_step(model, memory, proj_mem, pooled)
-    return sample_tokens(step, model.init_carry(pooled), pooled.shape[0],
+    return sample_tokens(step, model.init_carry(pooled, max_len),
+                         pooled.shape[0],
                          max_len, greedy=greedy, temperature=temperature,
                          noise=noise, decode_chunk=decode_chunk,
                          return_steps=return_steps)
@@ -186,7 +187,8 @@ def sample_with_baseline(model, feats, max_len: int, seq_per_img: int,
     memory, proj_mem, pooled = both(memory), both(proj_mem), both(pooled)
     step = make_decode_step(model, memory, proj_mem, pooled)
     greedy_rows = torch.arange(ns + b, device=pooled.device) >= ns
-    out = sample_tokens(step, model.init_carry(pooled), ns + b, max_len,
+    out = sample_tokens(step, model.init_carry(pooled, max_len), ns + b,
+                        max_len,
                         greedy=greedy_rows, temperature=temperature,
                         noise=noise, decode_chunk=decode_chunk,
                         return_steps=return_steps)
@@ -201,7 +203,7 @@ def greedy_decode(model, feats, max_len: int, decode_chunk: int = 0,
     """Encode + deterministic argmax decode -> (B, L) tokens, and with
     ``return_steps`` the decode steps executed."""
     memory, proj_mem, pooled = model.encode(feats)
-    carry = model.init_carry(pooled)
+    carry = model.init_carry(pooled, max_len)
     step = make_decode_step(model, memory, proj_mem, pooled)
     out = sample_tokens(step, carry, pooled.shape[0], max_len,
                         decode_chunk=decode_chunk, return_steps=return_steps)

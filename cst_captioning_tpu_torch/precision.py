@@ -10,10 +10,11 @@ either dtype.  Each op casts at use, as flax does:
   in that dtype.  In float32 it is the one ``F.linear`` the port has
   always run, so the float32 path is unchanged bit for bit.
 - ``embed``: the table cast to the compute dtype, then the gather.
-- ``sigmoid`` and ``log_softmax`` in bfloat16 take the reference's op
-  order, each op rounding to bfloat16 as XLA runs them:
-  ``1 / (1 + exp(-x))``, and ``x - m - log(sum exp(x - m))`` with the sum
-  taken in float32.  ``torch.sigmoid`` and ``torch.log_softmax`` round
+- ``sigmoid``, ``log_softmax``, ``softmax`` and ``gelu`` in bfloat16
+  take the reference's op order, each op rounding to bfloat16 as XLA runs them:
+  ``1 / (1 + exp(-x))``, ``x - m - log(sum exp(x - m))`` and
+  ``exp(x - m) / sum exp(x - m)`` with the sums taken in float32, and
+  ``x * (0.5 * (1 + tanh(sqrt(2 / pi) * (x + 0.044715 * x ** 3))))``.  ``torch.sigmoid`` and ``torch.log_softmax`` round
   once at the end, a different function in bfloat16 (3 in 10 sigmoids
   and 2 in 10 log-probabilities land on another bfloat16 value).  In
   float32 both are the torch ops the port has always run.
@@ -80,3 +81,27 @@ def log_softmax(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
         return torch.log_softmax(x, dim=dim)
     shifted = x - x.detach().amax(dim=dim, keepdim=True)
     return shifted - torch.log(torch.exp(shifted).sum(dim=dim, keepdim=True))
+
+
+def softmax(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """``jax.nn.softmax`` in ``x``'s dtype: float32 ``torch.softmax``;
+    bfloat16 ``e / sum(e)`` with ``e = exp(x - max(x))``, each op rounded
+    to bfloat16 and the sum accumulated in float32."""
+    if x.dtype == torch.float32:
+        return torch.softmax(x, dim=dim)
+    e = torch.exp(x - x.detach().amax(dim=dim, keepdim=True))
+    return e / e.sum(dim=dim, keepdim=True, dtype=torch.float32).to(x.dtype)
+
+
+_SQRT_2_OVER_PI = 0.7978845608028654
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu`` (``approximate=True``, flax's ``nn.gelu``) in
+    ``x``'s dtype: float32 ``F.gelu(x, approximate="tanh")``; bfloat16 the
+    reference's formula, each op rounded to bfloat16."""
+    if x.dtype == torch.float32:
+        return F.gelu(x, approximate="tanh")
+    cdf = 0.5 * (1.0 + torch.tanh(_SQRT_2_OVER_PI
+                                  * (x + 0.044715 * x ** 3)))
+    return x * cdf

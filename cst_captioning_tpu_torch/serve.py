@@ -25,7 +25,10 @@ Three backends.  The first two serve a seeded feature table (ids ``v0``
   them, or without them those of the checkpoint's val split (an exported
   checkpoint needs the files); ``--max_length`` defaults to the
   checkpoint's, so the captions equal the eval CLI's predictions at the
-  same beam and decode settings.
+  same beam and decode settings.  Every LSTM variant serves (manet,
+  multi-layer, pooled); a transformer checkpoint is refused (exit 1, the
+  reason on stderr): its carry's position is shared by the batch, so a
+  slot admitted mid-flight cannot start at position 0.
 
 Protocol and shutdown: ``serving/server.py``.  Requests come on stdin,
 or with ``--serve_port`` on a localhost socket (``-1``: an ephemeral
@@ -87,7 +90,8 @@ from .resilience.integrity import atomic_json_write
 from .resilience.preemption import PreemptionHandler
 from .serving.buckets import parse_buckets
 from .serving.cache import ResultCache
-from .serving.engine import ServingEngine, ServingUnrecoverable
+from .serving.engine import (ServingEngine, ServingRefused,
+                             ServingUnrecoverable, refuse_unservable)
 from .serving.server import CaptionServer
 from .telemetry.lifecycle import DEFAULT_EVENTS, LifecycleTracer
 from .telemetry.registry import MetricsRegistry
@@ -259,9 +263,14 @@ def build_backend(opt):
     sets ``opt.max_length`` where it was left to the backend."""
     device = default_device(opt.device)
     if opt.checkpoint_path:
+        # Built on the reference cell, refused, then given the asked
+        # cell: a transformer is refused before the fused cell's own
+        # refusal of it.
         model, vocab, split, saved = load_checkpoint_model(
-            opt.checkpoint_path, device, opt.decode_kernel,
-            opt.pallas_attention, test_paths=paths_from_opt(opt, "test"))
+            opt.checkpoint_path, device, "reference", opt.pallas_attention,
+            test_paths=paths_from_opt(opt, "test"))
+        refuse_unservable(model.decoder_type)
+        model = model.clone(decode_kernel=opt.decode_kernel)
         if opt.max_length is None:
             opt.max_length = saved.max_length
         index = {vid: i for i, vid in enumerate(split.video_ids)}
@@ -292,6 +301,7 @@ def build_backend(opt):
             vocab = Vocab.from_json(json.load(f))
         model = model_from_flax(load_params_npz(opt.params_npz),
                                 device=device, **kw)
+        refuse_unservable(model.decoder_type)
         if model.feat_dims != tuple(d for _, d in feat_shapes):
             raise ValueError(f"--feat_shapes dims {feat_shapes} do not match "
                              f"the weights' {model.feat_dims}")
@@ -428,7 +438,12 @@ def main(argv=None) -> int:
     plan = FaultPlan.parse(opt.fault_plan)
     if plan is not None:
         plan.bind_metrics(registry)
-    model, vocab, feat_shapes, feats_for = build_backend(opt)
+    try:
+        model, vocab, feat_shapes, feats_for = build_backend(opt)
+    except ServingRefused as e:
+        handler.uninstall()
+        print(f"serve: refused: {e}", file=sys.stderr, flush=True)
+        return EXIT_FAILURE
     tracer, lifecycle = make_tracers(opt, registry)
     engine = ServingEngine(
         model, feat_shapes, **engine_kwargs(opt), fault_plan=plan,

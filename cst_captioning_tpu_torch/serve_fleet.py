@@ -35,13 +35,14 @@ import sys
 
 import torch
 
+from .resilience.exitcodes import EXIT_FAILURE
 from .resilience.faults import FaultPlan
 from .resilience.preemption import PreemptionHandler
 from .serve import (build_backend, configure_cli_logging, engine_kwargs,
                     make_tracers, parse_args, serve_until_exit,
                     warn_serve_deadline)
 from .serving.cache import ResultCache
-from .serving.engine import ServingEngine
+from .serving.engine import ServingEngine, ServingRefused
 from .serving.fleet import FleetRouter, FleetUnrecoverable
 from .serving.server import CaptionServer
 from .telemetry.registry import MetricsRegistry
@@ -65,7 +66,12 @@ def main(argv=None) -> int:
     plan = FaultPlan.parse(opt.fault_plan)
     if plan is not None:
         plan.bind_metrics(registry)
-    model, vocab, feat_shapes, feats_for = build_backend(opt)
+    try:
+        model, vocab, feat_shapes, feats_for = build_backend(opt)
+    except ServingRefused as e:
+        handler.uninstall()
+        print(f"serve_fleet: refused: {e}", file=sys.stderr, flush=True)
+        return EXIT_FAILURE
     tracer, lifecycle = make_tracers(opt, registry)
     result_cache = ResultCache(opt.serve_cache) if opt.serve_cache else None
     devices = replica_devices(model)

@@ -209,6 +209,23 @@ class _Resident:
     last_emit: Optional[float] = None
 
 
+#: Why the engine refuses the transformer (the reference's reason).
+TRANSFORMER_REFUSAL = (
+    "serving requires per-row decoder state; the transformer carry holds "
+    "a batch-shared position counter, so a slot admitted mid-flight cannot "
+    "start at position 0 (SERVING.md 'Model support')")
+
+
+class ServingRefused(ValueError):
+    """A model the engine cannot serve (the transformer)."""
+
+
+def refuse_unservable(model_type: str) -> None:
+    """Raise ``ServingRefused`` unless ``model_type`` is the LSTM's."""
+    if model_type != "lstm":
+        raise ServingRefused(TRANSFORMER_REFUSAL)
+
+
 class ServingEngine:
     """Continuous batching over the greedy / beam decode.
 
@@ -244,6 +261,7 @@ class ServingEngine:
                  result_cache: Optional[ResultCache] = None,
                  registry=None, tracer=None, lifecycle=None,
                  clock: Callable[[], float] = time.monotonic):
+        refuse_unservable(model.decoder_type)
         self.model = model
         self.device = model.device
         self._feat_shapes = tuple(tuple(int(x) for x in s)
@@ -332,7 +350,9 @@ class ServingEngine:
         rows are provable no-ops until an admission claims them."""
         m, k, dev = self.model, self.beam_size, self.device
         rows = slots * k
-        t = sum(s[0] for s in self._feat_shapes)
+        # The memory's tokens: every frame, or one per modality (manet).
+        t = (len(self._feat_shapes) if m.fusion_type == "modality"
+             else sum(s[0] for s in self._feat_shapes))
 
         def z(*shape, dtype=torch.float32, fill=0):
             return torch.full(shape, fill, dtype=dtype, device=dev)

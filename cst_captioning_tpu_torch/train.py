@@ -17,6 +17,10 @@ batches ahead of the step, in the loader's own order.  The divergence guard
 (``--divergence_guard 1``) skips non-finite updates on the device and
 rolls back after ``--divergence_max_bad`` in a row.
 
+The model is the reference's: ``--model_type lstm|transformer``,
+``--fusion_type temporal|manet``, ``--num_layers``, ``--use_attention``,
+``--num_heads``, ``--num_tx_layers`` and ``--remat_cell`` (default 1:
+each LSTM step recomputed in the backward, the same gradients).
 Flags keep the reference's names (its ``opts.py``).  The data are the
 files of a prepro'd split (``data/dataset.py``): ``--train_feat_npy``
 (one ``.npy`` per modality), ``--train_label_npz``, ``--train_info_json``,
@@ -69,6 +73,7 @@ from .resilience.faults import FaultPlan, fault_plan_arg
 from .resilience.preemption import PreemptedExit, PreemptionHandler
 from .training.state import OPTIMIZERS
 from .training.trainer import NegativeAdvantageAbort, Trainer
+from .weights import FUSION_TYPES, MODEL_TYPES
 
 
 def positive_int(text: str) -> int:
@@ -108,10 +113,31 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="prefetch threads assembling batches ahead of the "
                         "step; the batch order is the same at any count")
     g = p.add_argument_group("model")
-    g.add_argument("--rnn_size", type=int, default=512)
-    g.add_argument("--input_encoding_size", type=int, default=512)
+    g.add_argument("--model_type", default="lstm", choices=MODEL_TYPES,
+                   help="decoder: the attention-LSTM or the Transformer")
+    g.add_argument("--fusion_type", default="temporal",
+                   choices=FUSION_TYPES,
+                   help="attention memory: the frames of every modality "
+                        "(temporal) or one token per modality (manet)")
+    g.add_argument("--rnn_size", type=int, default=512,
+                   help="LSTM hidden size / transformer model width")
+    g.add_argument("--input_encoding_size", type=int, default=512,
+                   help="word embedding size (the LSTM's; the "
+                        "transformer's is --rnn_size)")
+    g.add_argument("--num_layers", type=int, default=1,
+                   help="LSTM layers")
     g.add_argument("--att_size", type=int, default=512)
+    g.add_argument("--use_attention", type=int, default=1,
+                   help="1 = attention-LSTM; 0 = the pooled model (the "
+                        "fused feature is every step's context)")
+    g.add_argument("--num_heads", type=int, default=8, help="transformer")
+    g.add_argument("--num_tx_layers", type=int, default=2,
+                   help="transformer")
     g.add_argument("--drop_prob", type=float, default=0.5)
+    g.add_argument("--remat_cell", type=int, default=1,
+                   help="1 = recompute each LSTM step in the backward "
+                        "instead of keeping its activations (the same "
+                        "gradients); 0 = keep them")
     g.add_argument("--pallas_attention", type=int, default=0,
                    help="1 = the decoder's attention on the K1 kernel")
     g.add_argument("--decode_kernel", choices=("reference", "fused", "bf16"),

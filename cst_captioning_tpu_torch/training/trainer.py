@@ -131,7 +131,8 @@ log = logging.getLogger(__name__)
 #: The saved options of an exported ``--start_from`` checkpoint that set
 #: the model's architecture (the training knobs stay this run's).
 ARCH_KEYS = ("rnn_size", "input_encoding_size", "att_size", "num_layers",
-             "use_attention")
+             "use_attention", "model_type", "fusion_type", "num_heads",
+             "num_tx_layers")
 
 #: One completed update: (its step index, its metrics).
 Completed = List[Tuple[int, Dict[str, Any]]]
@@ -239,15 +240,28 @@ def _synthetic_splits(opt, train_features: bool, consensus: bool):
     return train, val
 
 
-def build_model(opt, vocab_size: int, feat_dims) -> CaptionModel:
+def build_model(opt, vocab_size: int, feat_dims,
+                 seq_length: Optional[int] = None,
+                 tx_max_len: Optional[int] = None) -> CaptionModel:
+    """The model the options ask for, as the reference's ``build_model``:
+    the transformer's positions cover ``max(seq_length + 1, max_length +
+    1)`` (``seq_length``: the label length, default ``max_length``)
+    unless ``tx_max_len`` (a checkpoint's) is given; ``--fusion_type
+    manet`` is the modality fusion."""
+    seq_length = opt.max_length if seq_length is None else seq_length
     return CaptionModel(
         vocab_size, feat_dims, embed_size=opt.input_encoding_size,
         hidden_size=opt.rnn_size, attn_size=opt.att_size,
-        num_layers=int(getattr(opt, "num_layers", 1)),
-        use_attention=bool(getattr(opt, "use_attention", 1)),
+        num_layers=int(opt.num_layers),
+        use_attention=bool(opt.use_attention),
         use_kernel_attention=bool(opt.pallas_attention),
         decode_kernel=opt.decode_kernel, drop_prob=opt.drop_prob,
-        dtype=torch.bfloat16 if opt.use_bfloat16 else torch.float32)
+        dtype=torch.bfloat16 if opt.use_bfloat16 else torch.float32,
+        decoder_type=opt.model_type, num_heads=int(opt.num_heads),
+        num_tx_layers=int(opt.num_tx_layers),
+        tx_max_len=tx_max_len or max(seq_length + 1, opt.max_length + 1),
+        fusion_type={"manet": "modality"}.get(opt.fusion_type, "temporal"),
+        remat_cell=bool(opt.remat_cell))
 
 
 class Trainer:
@@ -315,7 +329,8 @@ class Trainer:
                      "options %s", opt.start_from, arch)
             vars(opt).update(arch)
         self.model = build_model(opt, self.vocab.size_with_pad,
-                                 self.train_split.feat_dims)
+                                 self.train_split.feat_dims,
+                                 self.train_split.seq_length)
         init_like_flax_(self.model, torch.Generator().manual_seed(opt.seed))
         if exported is not None:
             self._start_from_exported(opt.start_from, *exported)

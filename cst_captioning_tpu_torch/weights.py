@@ -28,7 +28,15 @@ builds (``encoder/embed_{m}``, ``encoder/fuse``, ``memory_proj``,
 ``cell/embed/embedding``, ``cell/attn/{query_proj/kernel,score_v}``,
 ``cell/lstm{l}/{ii,if,ig,io}/kernel``,
 ``cell/lstm{l}/{hi,hf,hg,ho}/{kernel,bias}``, ``state_init_{l}``,
-``logit``).  Unknown or missing keys raise.
+``logit``), or, for the transformer, the ``tx`` subtree in place of
+``memory_proj``, ``cell``, ``state_init_{l}`` and ``logit``:
+``tx/embed/embedding``, ``tx/pos_embed``, ``tx/block_{i}/{LayerNorm_0,
+LayerNorm_1, LayerNorm_2, Dense_0, Dense_1}``,
+``tx/block_{i}/{self_attn,cross_attn}/{query,key,value,out}`` (flax
+``DenseGeneral``: kernels (H, heads, head_dim) and (heads, head_dim, H),
+flattened into ``nn.Linear`` weights), ``tx/LayerNorm_0`` and
+``tx/logit``.  A manet tree is a temporal one: its fusion comes from the
+saved options.  Unknown or missing keys raise.
 """
 
 from __future__ import annotations
@@ -43,7 +51,7 @@ import torch
 
 from . import default_device
 from .data.vocab import Vocab, load_vocab, save_vocab
-from .models.captioner import CaptionModel
+from .models.captioner import DECODER_TYPES, CaptionModel
 from .resilience.integrity import atomic_json_write
 
 GATES = ("i", "f", "g", "o")   # flax OptimizedLSTMCell concat order
@@ -77,13 +85,34 @@ def load_params_npz(path: str) -> Dict[str, Any]:
 
 
 def config_from_flax(params: Mapping) -> Dict[str, Any]:
-    """The ``CaptionModel`` widths a Flax tree encodes."""
+    """The ``CaptionModel`` widths a Flax tree encodes.  A transformer
+    tree (a ``tx`` subtree) adds ``decoder_type``, ``num_heads``,
+    ``num_tx_layers`` and ``tx_max_len``; its word embedding is ``rnn_size``
+    wide, so ``embed_size`` is the hidden size.  The fusion is not in the
+    tree: a manet tree is a temporal one, and the caller takes the fusion
+    from the saved options."""
     enc = params["encoder"]
-    cell = params["cell"]
     feat_dims = []
     while f"embed_{len(feat_dims)}" in enc:
         feat_dims.append(
             int(np.shape(enc[f"embed_{len(feat_dims)}"]["kernel"])[0]))
+    hidden = int(np.shape(enc["fuse"]["kernel"])[1])
+    if "tx" in params:
+        tx = params["tx"]
+        num_tx_layers = 0
+        while f"block_{num_tx_layers}" in tx:
+            num_tx_layers += 1
+        vocab_size = np.shape(tx["embed"]["embedding"])[0]
+        return {
+            "vocab_size": int(vocab_size), "feat_dims": feat_dims,
+            "embed_size": hidden, "hidden_size": hidden,
+            "decoder_type": "transformer",
+            "num_heads": int(np.shape(
+                tx["block_0"]["self_attn"]["query"]["kernel"])[1]),
+            "num_tx_layers": num_tx_layers,
+            "tx_max_len": int(np.shape(tx["pos_embed"])[0]),
+        }
+    cell = params["cell"]
     num_layers = 0
     while f"lstm{num_layers}" in cell:
         num_layers += 1
@@ -92,11 +121,19 @@ def config_from_flax(params: Mapping) -> Dict[str, Any]:
         "vocab_size": int(vocab_size),
         "feat_dims": feat_dims,
         "embed_size": int(embed_size),
-        "hidden_size": int(np.shape(enc["fuse"]["kernel"])[1]),
+        "hidden_size": hidden,
         "num_layers": num_layers,
         "attn_size": int(np.shape(params["memory_proj"]["kernel"])[1]),
         "use_attention": "attn" in cell,
     }
+
+
+#: The transformer block's flax submodules -> the port's.
+TX_BLOCK_LAYERS = (("LayerNorm_0", "ln0"), ("LayerNorm_1", "ln1"),
+                   ("LayerNorm_2", "ln2"), ("Dense_0", "mlp0"),
+                   ("Dense_1", "mlp1"))
+TX_ATTENTIONS = ("self_attn", "cross_attn")
+TX_PROJECTIONS = ("query", "key", "value", "out")
 
 
 def from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
@@ -116,25 +153,56 @@ def from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
         if bias:
             sd[f"{dst}.bias"] = take(f"{src}/bias")
 
+    def layer_norm(src: str, dst: str) -> None:
+        sd[f"{dst}.scale"] = take(f"{src}/scale")
+        sd[f"{dst}.bias"] = take(f"{src}/bias")
+
     cfg = config_from_flax(params)
     sd: Dict[str, torch.Tensor] = {}
     for m in range(len(cfg["feat_dims"])):
         dense(f"encoder/embed_{m}", f"encoder.embed.{m}")
     dense("encoder/fuse", "encoder.fuse")
-    dense("memory_proj", "memory_proj", bias=False)
-    sd["cell.embed.weight"] = take("cell/embed/embedding")
-    if cfg["use_attention"]:
-        dense("cell/attn/query_proj", "cell.attn.query_proj", bias=False)
-        sd["cell.attn.score_v"] = take("cell/attn/score_v")
-    for layer in range(cfg["num_layers"]):
-        pre = f"cell/lstm{layer}"
-        w_i = torch.cat([take(f"{pre}/i{g}/kernel") for g in GATES], dim=1)
-        w_h = torch.cat([take(f"{pre}/h{g}/kernel") for g in GATES], dim=1)
-        sd[f"cell.lstm.{layer}.w"] = torch.cat([w_i, w_h], dim=0)
-        sd[f"cell.lstm.{layer}.bias"] = torch.cat(
-            [take(f"{pre}/h{g}/bias") for g in GATES])
-        dense(f"state_init_{layer}", f"state_init.{layer}")
-    dense("logit", "logit")
+    if cfg.get("decoder_type") == "transformer":
+        sd["tx.embed.weight"] = take("tx/embed/embedding")
+        sd["tx.pos_embed"] = take("tx/pos_embed")
+        for i in range(cfg["num_tx_layers"]):
+            src, dst = f"tx/block_{i}", f"tx.blocks.{i}"
+            for flax_name, name in TX_BLOCK_LAYERS:
+                if flax_name.startswith("LayerNorm"):
+                    layer_norm(f"{src}/{flax_name}", f"{dst}.{name}")
+                else:
+                    dense(f"{src}/{flax_name}", f"{dst}.{name}")
+            for attn in TX_ATTENTIONS:
+                for proj in TX_PROJECTIONS:
+                    # DenseGeneral: (H, heads, hd) in, (heads, hd, H) out.
+                    path = f"{src}/{attn}/{proj}"
+                    kernel = take(f"{path}/kernel")
+                    kernel = (kernel.reshape(-1, kernel.shape[-1])
+                              if proj == "out"
+                              else kernel.reshape(kernel.shape[0], -1))
+                    sd[f"{dst}.{attn}.{proj}.weight"] = kernel.T.contiguous()
+                    sd[f"{dst}.{attn}.{proj}.bias"] = take(
+                        f"{path}/bias").reshape(-1)
+        layer_norm("tx/LayerNorm_0", "tx.ln")
+        dense("tx/logit", "tx.logit")
+    else:
+        dense("memory_proj", "memory_proj", bias=False)
+        sd["cell.embed.weight"] = take("cell/embed/embedding")
+        if cfg["use_attention"]:
+            dense("cell/attn/query_proj", "cell.attn.query_proj",
+                  bias=False)
+            sd["cell.attn.score_v"] = take("cell/attn/score_v")
+        for layer in range(cfg["num_layers"]):
+            pre = f"cell/lstm{layer}"
+            w_i = torch.cat([take(f"{pre}/i{g}/kernel") for g in GATES],
+                            dim=1)
+            w_h = torch.cat([take(f"{pre}/h{g}/kernel") for g in GATES],
+                            dim=1)
+            sd[f"cell.lstm.{layer}.w"] = torch.cat([w_i, w_h], dim=0)
+            sd[f"cell.lstm.{layer}.bias"] = torch.cat(
+                [take(f"{pre}/h{g}/bias") for g in GATES])
+            dense(f"state_init_{layer}", f"state_init.{layer}")
+        dense("logit", "logit")
     unknown = sorted(set(flat) - used)
     if unknown:
         raise KeyError(f"flax tree has keys the port does not know: "
@@ -143,12 +211,18 @@ def from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
 
 
 def to_flax(model_or_state: Any) -> Dict[str, Any]:
-    """The port's ``CaptionModel`` (or its state dict) -> the reference's
-    Flax parameter tree, float32 numpy arrays: the inverse of
-    ``from_flax``."""
-    sd = (model_or_state.state_dict() if hasattr(model_or_state,
-                                                 "state_dict")
-          else model_or_state)
+    """The port's ``CaptionModel`` (or an LSTM's state dict) -> the
+    reference's Flax parameter tree, float32 numpy arrays: the inverse of
+    ``from_flax``.  A transformer is passed as the model: its head count,
+    which the ``DenseGeneral`` kernels' shapes need, is not in its state
+    dict."""
+    num_heads = None
+    if hasattr(model_or_state, "state_dict"):
+        if model_or_state.decoder_type == "transformer":
+            num_heads = model_or_state.tx.blocks[0].self_attn.num_heads
+        sd = model_or_state.state_dict()
+    else:
+        sd = model_or_state
     sd = {k: v.detach().float().cpu().numpy() for k, v in sd.items()}
     tree: Dict[str, Any] = {}
 
@@ -169,6 +243,50 @@ def to_flax(model_or_state: Any) -> Dict[str, Any]:
         dense(f"encoder.embed.{m}", f"encoder/embed_{m}")
         m += 1
     dense("encoder.fuse", "encoder/fuse")
+    if "tx.pos_embed" in sd:
+        _tx_to_flax(sd, put, dense, num_heads)
+    else:
+        _lstm_to_flax(sd, put, dense)
+    if sd:
+        raise KeyError(f"state dict has keys to_flax does not know: "
+                       f"{sorted(sd)}")
+    return tree
+
+
+def _tx_to_flax(sd, put, dense, num_heads: Optional[int]) -> None:
+    if num_heads is None:
+        raise ValueError("to_flax of a transformer: pass the model, whose "
+                         "head count its state dict does not hold")
+    put("tx/embed/embedding", sd.pop("tx.embed.weight"))
+    put("tx/pos_embed", sd.pop("tx.pos_embed"))
+    i = 0
+    while f"tx.blocks.{i}.ln0.scale" in sd:
+        src, dst = f"tx.blocks.{i}", f"tx/block_{i}"
+        for flax_name, name in TX_BLOCK_LAYERS:
+            if flax_name.startswith("LayerNorm"):
+                put(f"{dst}/{flax_name}/scale", sd.pop(f"{src}.{name}.scale"))
+                put(f"{dst}/{flax_name}/bias", sd.pop(f"{src}.{name}.bias"))
+            else:
+                dense(f"{src}.{name}", f"{dst}/{flax_name}")
+        for attn in TX_ATTENTIONS:
+            for proj in TX_PROJECTIONS:
+                kernel = sd.pop(f"{src}.{attn}.{proj}.weight").T
+                bias = sd.pop(f"{src}.{attn}.{proj}.bias")
+                hid = kernel.shape[0]
+                if proj == "out":
+                    kernel = kernel.reshape(num_heads, -1, kernel.shape[1])
+                else:
+                    kernel = kernel.reshape(hid, num_heads, -1)
+                    bias = bias.reshape(num_heads, -1)
+                put(f"{dst}/{attn}/{proj}/kernel", kernel)
+                put(f"{dst}/{attn}/{proj}/bias", bias)
+        i += 1
+    put("tx/LayerNorm_0/scale", sd.pop("tx.ln.scale"))
+    put("tx/LayerNorm_0/bias", sd.pop("tx.ln.bias"))
+    dense("tx.logit", "tx/logit")
+
+
+def _lstm_to_flax(sd, put, dense) -> None:
     dense("memory_proj", "memory_proj")
     put("cell/embed/embedding", sd.pop("cell.embed.weight"))
     if "cell.attn.score_v" in sd:
@@ -188,10 +306,6 @@ def to_flax(model_or_state: Any) -> Dict[str, Any]:
         dense(f"state_init.{layer}", f"state_init_{layer}")
         layer += 1
     dense("logit", "logit")
-    if sd:
-        raise KeyError(f"state dict has keys to_flax does not know: "
-                       f"{sorted(sd)}")
-    return tree
 
 
 #: What ``export.json`` says an exported checkpoint is.
@@ -203,6 +317,9 @@ MODEL_OPT_KEYS = ("model_type", "rnn_size", "input_encoding_size",
                   "num_layers", "att_size", "use_attention", "drop_prob",
                   "num_heads", "num_tx_layers", "use_bfloat16", "max_length",
                   "fusion_type")
+#: The ``--model_type`` and ``--fusion_type`` values (the reference's).
+MODEL_TYPES = DECODER_TYPES
+FUSION_TYPES = ("temporal", "manet")
 
 
 def _file_digest(path: str) -> Dict[str, Any]:
@@ -271,15 +388,16 @@ def load_exported_checkpoint(directory: str
 
 def exported_model_opts(opts: Mapping[str, Any]) -> Dict[str, Any]:
     """The saved options ``MODEL_OPT_KEYS`` names, refused where they ask
-    for a model the port does not have (the attention-LSTM over temporal
-    fusion only)."""
+    for a model the port does not have (a ``model_type`` other than
+    ``lstm`` and ``transformer``, a ``fusion_type`` other than
+    ``temporal`` and ``manet``)."""
     picked = {k: opts[k] for k in MODEL_OPT_KEYS if k in opts}
-    if picked.get("model_type", "lstm") != "lstm":
+    if picked.get("model_type", "lstm") not in MODEL_TYPES:
         raise ValueError(f"model_type {picked['model_type']!r}: the port "
-                         "has the attention-LSTM only")
-    if picked.get("fusion_type", "temporal") != "temporal":
+                         f"has {MODEL_TYPES}")
+    if picked.get("fusion_type", "temporal") not in FUSION_TYPES:
         raise ValueError(f"fusion_type {picked['fusion_type']!r}: the port "
-                         "has temporal fusion only")
+                         f"has {FUSION_TYPES}")
     return picked
 
 
@@ -309,7 +427,10 @@ def init_like_flax_(model: CaptionModel,
     sqrt(1/fan_in)), biases zero, the word embedding normal with std
     1/sqrt(E), the gate kernels per gate block: input side
     ``lecun_normal``, each (H, H) recurrent block orthogonal; ``score_v``
-    normal with std 1/sqrt(A).  ``generator`` is a CPU generator, so every
+    normal with std 1/sqrt(A).  The transformer's: the attention
+    projections ``lecun_normal`` over their fan-in H (``DenseGeneral``;
+    the output's fan-in is heads x head_dim = H), ``pos_embed`` normal
+    with std 0.02, LayerNorm scales one and biases zero.  ``generator`` is a CPU generator, so every
     device gets the same numbers."""
 
     def lecun_(shape, fan_in):
@@ -322,7 +443,11 @@ def init_like_flax_(model: CaptionModel,
     for name, p in model.named_parameters():
         if name.endswith("bias"):
             fresh = torch.zeros(p.shape)
-        elif name == "cell.embed.weight":
+        elif name.endswith(".scale"):          # LayerNorm
+            fresh = torch.ones(p.shape)
+        elif name == "tx.pos_embed":
+            fresh = torch.randn(p.shape, generator=generator) * 0.02
+        elif name in ("cell.embed.weight", "tx.embed.weight"):
             fresh = torch.randn(p.shape, generator=generator) \
                 / p.shape[1] ** 0.5
         elif name == "cell.attn.score_v":
@@ -356,11 +481,15 @@ def init_random_(model: CaptionModel, seed: int,
     for name, p in sorted(model.named_parameters()):
         if name.endswith("bias"):
             fresh = torch.zeros(p.shape)
+        elif name.endswith(".scale"):          # LayerNorm
+            fresh = torch.ones(p.shape)
         else:
             # Linear weights are (out, in), gate weights (in, out).
             fan_in = p.shape[0] if ".lstm." in name else p.shape[-1]
             fresh = torch.randn(p.shape, generator=gen) / fan_in ** 0.5
         p.copy_(fresh.to(p.device))
     if eos_bias:
-        model.logit.bias[0] += eos_bias
+        head = model.tx.logit if model.decoder_type == "transformer" \
+            else model.logit
+        head.bias[0] += eos_bias
     return model

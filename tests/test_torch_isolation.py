@@ -62,7 +62,8 @@ def test_sources_found():
             "rewards.py", "tokenizer.py", "dataset.py", "prepro.py",
             "converters.py", "consensus.py", "device_rewards.py",
             "weights.py", "stage_chain.py", "journal.py", "supervisor.py",
-            "autoscale.py", "fleetobs.py", "serve_supervisor.py"} <= names
+            "autoscale.py", "fleetobs.py", "serve_supervisor.py",
+            "decoder_transformer.py"} <= names
     # The on-disk data path, the port's own copies.
     assert {p.relative_to(PKG).as_posix() for p in PKG.rglob("*.py")} >= {
         "data/dataset.py", "data/prepro.py", "data/converters.py",
