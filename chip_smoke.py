@@ -230,6 +230,36 @@ Phases, each printed as it runs; any failure exits non-zero:
    printed (budget 90 s).  Phases 1-16 and their children run with
    ``CST_TUNED_CONFIGS_TORCH=''``.
 
+18. data and context parallelism (``parallel/``), run after phase 16 on
+   phase 7's split and width: (a) the train CLI's parser,
+   ``distributed_init`` and ``Trainer`` with ``--num_processes 1
+   --process_id 0 --coordinator_address 127.0.0.1:<free port>`` (a
+   one-rank NCCL group, K1 and K2 on): 3 XE steps, then 2 fused CST
+   steps from the XE state; per-step losses and the final parameters
+   and optimizer state bit for bit those of the same run without the
+   flags, launches checked as in phase 7; (b) ``run_dp_pipeline(2)``,
+   two gloo ranks sharing the card, against ``run_dp_pipeline(1)`` at
+   full width (8 videos x 20 captions, K1 and K2): sampled and greedy
+   tokens bitwise, the XE, RL and fused losses and the fused reward
+   within 1e-5 relative, the ranks' states bitwise equal, each
+   kernel's launches exactly its count per teacher-forced and decode
+   step at each rank count; the parameters after 4 SGD updates within
+   the reference test's bound (rtol 1e-4, atol 1e-6), after 4 Adam
+   updates within it but for at most 1e-4 of the elements, every element
+   within 5% of one step, and Adam replayed at those elements from each
+   run's reduced gradients reproducing their gap (``PARAM_RTOL`` and the
+   constants beside it say why); (c) over 2 ranks: ``sp_additive_attention`` at B
+   = 64 over T = 29 split ragged (padded to 30, masked) against K1 on
+   the whole T, ``sp_dot_attention`` and the ring at T = 4096 against
+   one rank's full attention (with and without a mask), within 1e-5,
+   and the CP transformer XE step (8 heads, 2 layers; a time-sharded
+   254 x 2048 stream beside 2 x 4096 clip vectors) against the
+   unsharded step, loss within 1e-5 and parameters within 2e-5; (d) the
+   ms/step of (a) with and without the group and of (b) at 1 and 2
+   ranks (the SGD pair), each beside the card's name and power limit.
+   No child process of the phase may still run after it.  The phase's
+   seconds are printed (budget 90 s).
+
 Each serving phase sets every kernel's launch count to 0 just before it
 and reads the counts just after; a kernel of the path launched other
 than its count per decode step (K2 twice, K1 once) fails the run.  The
@@ -241,7 +271,7 @@ dispatched; the fused path builds no host reward.
 Output: phase lines as they run; then a JSON object with one entry per
 kernel and storage dtype (``storage``; times at the serving batch B = 8,
 every measured batch under ``by_batch``, phase 16's under ``T2/<B>``;
-launches of phases 4-7, 9, 10 and 12-17 for float32, of phases 8, 11,
+launches of phases 4-7, 9, 10 and 12-18 for float32, of phases 8, 11,
 14g and 17 for bfloat16); then
 the card line (``nvidia-smi``
 name and power limit); and last ``{"ok": true, "device": ...}``.
@@ -997,6 +1027,20 @@ def train_splits():
     return splits
 
 
+#: The device CIDEr-D tables that the CST trainers of this process share
+#: (``Trainer(device_tables=)``), so that phases 8, 16 and 18 build none
+#: of their own on phase 7's split: several host seconds a trainer.
+REWARD_TABLES: dict = {}
+
+
+def smoke_trainer(opt, splits):
+    """A ``Trainer`` of this process over ``splits``, sharing
+    ``REWARD_TABLES``."""
+    from cst_captioning_tpu_torch.training.trainer import Trainer
+
+    return Trainer(opt, splits, device_tables=REWARD_TABLES)
+
+
 def train_phase(splits):
     """Phase 7: XE -> WXE -> CST at full width through the train CLI's
     parser and ``Trainer``; CST on the fused path (the default), then on
@@ -1011,7 +1055,6 @@ def train_phase(splits):
 
     from cst_captioning_tpu_torch import train
     from cst_captioning_tpu_torch.training import checkpoint
-    from cst_captioning_tpu_torch.training.trainer import Trainer
 
     shutil.rmtree(CKPT_ROOT, ignore_errors=True)
     rows = TRAIN_BATCH * TRAIN_SEQ
@@ -1035,7 +1078,7 @@ def train_phase(splits):
         return path
 
     torch.cuda.reset_peak_memory_stats()
-    xe = Trainer(train.parse_args(stage_args(
+    xe = smoke_trainer(train.parse_args(stage_args(
         "--checkpoint_path", os.path.join(CKPT_ROOT, "xe"))), splits)
     add(timed_steps(xe, 2, teacher_forced))
     xe_steps = timed_steps(xe, 10, teacher_forced)
@@ -1054,7 +1097,7 @@ def train_phase(splits):
     start = save_best(xe, "xe")
     del xe
 
-    wxe = Trainer(train.parse_args(stage_args(
+    wxe = smoke_trainer(train.parse_args(stage_args(
         "--use_consensus_weights", "1", "--learning_rate", "1e-4",
         "--start_from", start,
         "--checkpoint_path", os.path.join(CKPT_ROOT, "wxe"))), splits)
@@ -1069,7 +1112,7 @@ def train_phase(splits):
 
     # CST, fused on-device path (--device_rewards 1, the default).
     t0 = time.perf_counter()
-    cst = Trainer(train.parse_args(stage_args(
+    cst = smoke_trainer(train.parse_args(stage_args(
         *cst_args, "--checkpoint_path", os.path.join(CKPT_ROOT, "cst"))),
         splits)
     setup = cst.reward_setup
@@ -1144,7 +1187,7 @@ def train_phase(splits):
     # depth 2.  Two pushes fill it, then 1 warm-up and 2 timed steady
     # iterations (each a rollout dispatched and an older step completed),
     # then the drain.
-    host = Trainer(train.parse_args(stage_args(
+    host = smoke_trainer(train.parse_args(stage_args(
         *cst_args, "--device_rewards", "0", "--overlap_rewards", "2",
         "--checkpoint_path", os.path.join(CKPT_ROOT, "cst_host"))), splits)
     if host.cst_scorer != "native":
@@ -1420,7 +1463,6 @@ def bf16_train_phase(splits) -> dict:
     import torch
 
     from cst_captioning_tpu_torch import train
-    from cst_captioning_tpu_torch.training.trainer import Trainer
 
     rows = TRAIN_BATCH * TRAIN_SEQ
     total = {}
@@ -1441,7 +1483,7 @@ def bf16_train_phase(splits) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    xe = Trainer(train.parse_args(stage_args(
+    xe = smoke_trainer(train.parse_args(stage_args(
         *bf16_args, "--checkpoint_path",
         os.path.join(HERE, "checkpoints", "chip_smoke_bf16"))), splits)
     table_gb = sum(t.numel() * t.element_size() for t in xe.feat_tables) / 1e9
@@ -1464,7 +1506,7 @@ def bf16_train_phase(splits) -> dict:
     if any(st[k].dtype != torch.float32 for st in xe.optimizer.state
            for k in st):
         fail("bfloat16 training: optimizer state not float32")
-    cst = Trainer(train.parse_args(stage_args(
+    cst = smoke_trainer(train.parse_args(stage_args(
         *bf16_args, "--use_rl", "1", "--rl_baseline", "greedy",
         "--learning_rate", "2e-5", "--checkpoint_path",
         os.path.join(HERE, "checkpoints", "chip_smoke_bf16_cst"))), splits)
@@ -2109,10 +2151,9 @@ def xe_from(name: str, opt, splits, losses_of) -> dict:
     -> {"ms": median ms/step, "wait_share", "losses"}."""
     import numpy as np
 
-    from cst_captioning_tpu_torch.training.trainer import Trainer
 
     t0 = time.perf_counter()
-    trainer = Trainer(opt, splits)
+    trainer = smoke_trainer(opt, splits)
     build_s = time.perf_counter() - t0
     wait = [0.0]
     fetch = trainer.next_batch
@@ -2163,7 +2204,6 @@ def files_phase(splits, eval_scores, eval_preds) -> dict:
                                               reset_launch_counts)
     from cst_captioning_tpu_torch.tools.stage_chain import data_argv
     from cst_captioning_tpu_torch.training import checkpoint
-    from cst_captioning_tpu_torch.training.trainer import Trainer
     from cst_captioning_tpu_torch.weights import (save_exported_checkpoint,
                                                   to_flax)
 
@@ -2221,7 +2261,7 @@ def files_phase(splits, eval_scores, eval_preds) -> dict:
     for name, extra, given in (
             ("files", files, None), ("in-memory split", [], splits)):
         t0 = time.perf_counter()
-        trainer = Trainer(train.parse_args(stage_args(
+        trainer = smoke_trainer(train.parse_args(stage_args(
             *extra, "--use_rl", "1", "--rl_baseline", "scb-gt",
             "--learning_rate", "2e-5",
             "--start_from", os.path.join(CKPT_ROOT, "wxe"),
@@ -2729,7 +2769,12 @@ def rest_phase(greedy_caps, beam_caps) -> int:
         p_abort.send_signal(signal.SIGSTOP)
         p_abort.send_signal(signal.SIGTERM)
         p_abort.send_signal(signal.SIGCONT)
-        rc_abort = p_abort.wait(timeout=120)
+        try:
+            rc_abort = p_abort.wait(timeout=120)
+        except subprocess.TimeoutExpired:
+            fail("phase 13: the drain-abort CLI still ran 120 s after its "
+                 "second signal; the tail of its stderr:\n"
+                 + "\n".join(ln for ln in abort_err[-40:] if ln))
         out = [json.loads(ln) for ln in p_abort.stdout.read().splitlines()
                if ln.strip()]
         aborted = abort_wait("drain aborted", 5)
@@ -3422,10 +3467,17 @@ def process_fleet_phase(greedy_caps, ref_caps) -> dict:
         print(f"process fleet (b)-(g) together: {time.perf_counter() - t_conc:.1f} s; "
               f"exits {rcs}")
 
-        # (b) the kill probe.
+        # (b) the kill probe.  A failed probe's stderr is the evidence:
+        # its tail is printed before anything else is read.
+        if rcs["b"] != 0:
+            print(f"process fleet (b) exited {rcs['b']}; the tail of its "
+                  "stderr:\n" + open(os.path.join(
+                      root("b"), "stderr.txt")).read()[-6000:])
         rec = record_of(root("b"))
         sup = rec.get("supervisor", {})
-        inc = [d for d in os.listdir(os.path.join(root("b"), "incidents"))
+        incidents = os.path.join(root("b"), "incidents")
+        inc = [d for d in (os.listdir(incidents)
+                           if os.path.isdir(incidents) else [])
                if re.fullmatch(r"\d{3}_replica1_rc137", d)]
         bb = bool(inc) and os.path.exists(os.path.join(
             root("b"), "incidents", inc[0], "blackbox.json"))
@@ -3647,9 +3699,8 @@ def variant_trainer(splits, name: str, *extra):
     after them (argparse keeps the last value), checkpoints under
     ``VARIANT_ROOT/name``."""
     from cst_captioning_tpu_torch import train
-    from cst_captioning_tpu_torch.training.trainer import Trainer
 
-    return Trainer(train.parse_args(stage_args(
+    return smoke_trainer(train.parse_args(stage_args(
         "--checkpoint_path", os.path.join(VARIANT_ROOT, name), *extra)),
         splits)
 
@@ -3837,8 +3888,7 @@ def variants_phase(splits) -> dict:
                                               launch_counts_by_dtype,
                                               reset_launch_counts)
     from cst_captioning_tpu_torch.ops.losses import cross_entropy_loss
-    from cst_captioning_tpu_torch.training.trainer import (Trainer,
-                                                           build_model)
+    from cst_captioning_tpu_torch.training.trainer import build_model
     from cst_captioning_tpu_torch.weights import init_like_flax_
 
     t_phase = time.perf_counter()
@@ -4308,8 +4358,7 @@ def telemetry_phase() -> dict:
     from cst_captioning_tpu_torch.ops import (launch_counts_by_dtype,
                                               reset_launch_counts)
     from cst_captioning_tpu_torch.tools.stage_chain import probe_device
-    from cst_captioning_tpu_torch.training.trainer import (Trainer,
-                                                           build_splits)
+    from cst_captioning_tpu_torch.training.trainer import build_splits
 
     t_phase = time.perf_counter()
     shutil.rmtree(TELEMETRY_ROOT, ignore_errors=True)
@@ -4395,7 +4444,7 @@ def telemetry_phase() -> dict:
         finally:
             os.environ["CST_TUNED_CONFIGS_TORCH"] = ""
         reset_launch_counts()
-        trainer = Trainer(opt, splits=splits)
+        trainer = smoke_trainer(opt, splits)
         try:
             trainer.train()
         finally:
@@ -4524,6 +4573,498 @@ def telemetry_phase() -> dict:
           + json.dumps({f"{k}/{d}": n for (k, d), n in total.items()}))
     return total
 
+DP_ROOT = os.path.join(HERE, "checkpoints", "chip_smoke_dp")
+DP_BUDGET_S = 90.0
+# (a): XE steps, then fused CST steps from the XE state.
+DP_XE_STEPS, DP_CST_STEPS = 3, 2
+# (b): run_dp_pipeline at full width, 8 videos x 20 captions, K1 and K2.
+DP_BATCH = 8
+DP_CONFIG = {"vocab": 8000, "hidden": 512, "seq_per_img": TRAIN_SEQ,
+             "max_len": MAX_LEN, "feat_shapes": [(28, 2048), (1, 4096)]}
+# (c): SP at B = 64 over phase 7's T (29, padded to 30 and masked) and at
+# T = 4096; the CP step on phase 16's transformer (8 heads, 2 layers) with
+# a time-sharded long stream (254 x 2048) and clip vectors (2 x 4096):
+# both T and the memory's 256 divide the 2 ranks.
+SP_B, SP_LQ, SP_D, SP_T_LONG = 64, 4, 64, 4096
+CP_BATCH = 4
+CP_CONFIG = {"vocab": 8000, "hidden": 512, "heads": 8, "layers": 2,
+             "max_len": MAX_LEN, "seq_per_img": TRAIN_SEQ, "lr": 1e-2,
+             "feat_shapes": [(254, 2048), (2, 4096)]}
+CP_LOSS_TOL, CP_PARAM_TOL = 1e-5, 2e-5
+# (b)'s parameters after 4 updates (lr 1e-3), held to the reference
+# test's elementwise bound (rtol 1e-4, atol 1e-6) under SGD.  Under Adam
+# a few elements fall outside it: where the first update's gradient is
+# near Adam's eps (1e-8), the sum of two half batches differs from the
+# whole batch's in its last bits by a few percent of itself, and
+# m / (sqrt(v) + eps) carries that into the update.  Those may number at
+# most DP_OUTLIERS of all the elements, every element stays within
+# DP_STEP_FRACTION of one step (lr), and Adam replayed at them from each
+# run's reduced gradients must reproduce their gap within PARAM_ATOL.
+PARAM_RTOL, PARAM_ATOL, DP_OUTLIERS, DP_STEP_FRACTION = 1e-4, 1e-6, 1e-4, 0.05
+DP_LR = 1e-3
+# The device of phase 18's ranks (the CPU in a rehearsal).
+DP_DEVICE = "cuda"
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def dp_twin(splits, name: str, group_flags) -> dict:
+    """Phase 18 (a), one run through the train CLI's parser and
+    ``Trainer`` on phase 7's split and width: ``DP_XE_STEPS`` XE steps,
+    the state saved, then ``DP_CST_STEPS`` fused CST steps started from
+    it; with ``group_flags`` inside the process group ``train.py`` starts
+    for them.  -> per-step losses, ms/step, the final parameters and
+    optimizer state (host copies), the launches and the backend."""
+    import shutil
+
+    import torch
+    import torch.distributed as dist
+
+    from cst_captioning_tpu_torch import train
+    from cst_captioning_tpu_torch.parallel.dp import distributed_init
+    from cst_captioning_tpu_torch.training import checkpoint
+
+    root = os.path.join(DP_ROOT, name)
+    shutil.rmtree(root, ignore_errors=True)
+    opt = train.parse_args(stage_args(
+        "--checkpoint_path", os.path.join(root, "xe"), *group_flags))
+    started = distributed_init(opt.coordinator_address, opt.num_processes,
+                               opt.process_id, device=opt.device or "cuda")
+    try:
+        backend = dist.get_backend() if started else None
+        xe = smoke_trainer(opt, splits)
+        xe_steps = timed_steps(xe, DP_XE_STEPS, expect_launches(MAX_LEN))
+        start = os.path.join(root, "xe_state")
+        checkpoint.CheckpointManager(start).save(
+            xe.step, xe.checkpoint_payload(), score=0.0)
+        grouped = xe.dp is not None
+        del xe
+        cst = smoke_trainer(train.parse_args(stage_args(
+            "--use_rl", "1", "--rl_baseline", "greedy", "--learning_rate",
+            "2e-5", "--start_from", start, "--checkpoint_path",
+            os.path.join(root, "cst"), *group_flags)), splits)
+        cst_steps = timed_steps(cst, DP_CST_STEPS,
+                                expect_launches(MAX_LEN, 2))
+        grouped = grouped and cst.dp is not None
+        state = ([p.detach().cpu().clone() for p in cst.model.parameters()]
+                 + [v.detach().cpu().clone() for st in cst.optimizer.state
+                    for v in st.values()]
+                 + [cst.optimizer.count.detach().cpu().clone()])
+        del cst
+    finally:
+        if started:
+            dist.destroy_process_group()
+    steps = xe_steps + cst_steps
+    launches = {k: sum(n[k] for _, _, n in steps)
+                for k in ("fused_additive_attention", "fused_decode_cell")}
+    return {"losses": [float(m["loss"]) for _, done, _ in steps
+                       for _, m in done],
+            "xe_ms": [s * 1e3 for s, _, _ in xe_steps],
+            "cst_ms": [s * 1e3 for s, _, _ in cst_steps],
+            "state": state, "launches": launches, "backend": backend,
+            "grouped": grouped}
+
+
+def sp_inputs(seed: int = 18) -> dict:
+    """(c)'s global SP inputs: dot attention at T = 4096 (row 0 attends
+    to its first 100 steps only), 8 heads of 64 at T = 256, and the
+    additive attention at phase 7's width over T = 29 padded to 30 (the
+    pad masked)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+
+    def r(*shape):
+        return rng.standard_normal(shape).astype(np.float32)
+
+    mask = np.ones((8, SP_T_LONG), bool)
+    mask[0, 100:] = False
+    amask = np.ones((SP_B, T_MEM + 1), bool)
+    amask[:, T_MEM] = False
+    return {"q": r(8, SP_LQ, SP_D), "k": r(8, SP_T_LONG, SP_D),
+            "v": r(8, SP_T_LONG, SP_D), "mask": mask,
+            "q4": r(8, SP_LQ, 8, 64), "k4": r(8, 256, 8, 64),
+            "v4": r(8, 256, 8, 64),
+            "qp": r(SP_B, A) * 0.5, "mem": r(SP_B, T_MEM + 1, H),
+            "pm": r(SP_B, T_MEM + 1, A) * 0.5, "sv": r(A) * 0.1,
+            "amask": amask}
+
+
+def full_attention(q, k, v, mask=None):
+    """One rank's attention over the whole T, float32 on the device."""
+    import torch
+
+    s = torch.einsum("bqd,btd->bqt", q, k) / q.shape[-1] ** 0.5
+    if mask is not None:
+        s = s.masked_fill(~mask[:, None, :], -1e30)
+    return torch.einsum("bqt,btd->bqd", torch.softmax(s, dim=-1), v)
+
+
+def cp_inputs(seed: int = 19):
+    """(c)'s CP step: seeded transformer weights and a global batch."""
+    import numpy as np
+    import torch
+
+    from cst_captioning_tpu_torch.models.captioner import CaptionModel
+    from cst_captioning_tpu_torch.weights import init_like_flax_
+
+    cfg = CP_CONFIG
+    model = CaptionModel(
+        cfg["vocab"], [d for _, d in cfg["feat_shapes"]],
+        embed_size=cfg["hidden"], hidden_size=cfg["hidden"],
+        attn_size=cfg["hidden"], drop_prob=0.0, decoder_type="transformer",
+        num_heads=cfg["heads"], num_tx_layers=cfg["layers"],
+        tx_max_len=cfg["max_len"] + 1)
+    init_like_flax_(model, torch.Generator().manual_seed(seed))
+    params = {k: v.numpy() for k, v in model.state_dict().items()}
+    rng = np.random.default_rng(seed)
+    x = {f"feats{m}": rng.standard_normal((CP_BATCH,) + s).astype(
+        np.float32) for m, s in enumerate(cfg["feat_shapes"])}
+    x["labels"] = rng.integers(1, cfg["vocab"], (
+        CP_BATCH * cfg["seq_per_img"], cfg["max_len"])).astype(np.int32)
+    x["labels"][::3, 10:] = 0           # captions of mixed lengths
+    return params, x
+
+
+def adam_outliers(one: dict, two: dict, out: dict):
+    """Phase 18 (b) under Adam: at the elements ``out`` marks (outside
+    the elementwise bound), each update's reduced gradient g of the
+    one-rank run, the relative gap between the two runs' g, and the gap
+    between the normalised updates u = m / (sqrt(v) + eps) that Adam,
+    replayed there in float32 from each run's gradients (the global-norm
+    clip included), makes of them, against the gradients over all
+    elements.  -> (the reading, the largest gap the replay leaves
+    unexplained)."""
+    import numpy as np
+
+    from cst_captioning_tpu_torch.training.state import B1, B2, EPS
+
+    names = sorted(out)
+
+    def at(d, where=True):
+        return np.concatenate([d[k][out[k]] if where else d[k].ravel()
+                               for k in names])
+
+    def replay(grads):
+        mu = nu = np.float32(0.0)
+        us, gs = [], []
+        for t, g in enumerate(grads, 1):
+            norm = np.sqrt(sum(float(np.sum(np.square(v, dtype=np.float64)))
+                               for v in g.values()))
+            x = at(g)
+            if norm >= 5.0:             # the pipeline's grad_clip
+                x = x / np.float32(norm) * np.float32(5.0)
+            mu = np.float32(1 - B1) * x + np.float32(B1) * mu
+            nu = np.float32(1 - B2) * x * x + np.float32(B2) * nu
+            us.append((mu / np.float32(1 - B1 ** t))
+                      / (np.sqrt(nu / np.float32(1 - B2 ** t))
+                         + np.float32(EPS)))
+            gs.append(x)
+        return us, gs
+
+    if not any(o.any() for o in out.values()):
+        return "no element outside the bound", 0.0
+    (u1, g1), (u2, g2) = replay(one["grads"]), replay(two["grads"])
+    seen = at(one["params"]) - at(two["params"])
+    made = DP_LR * sum(b - a for a, b in zip(u1, u2))
+
+    def fmt(xs):
+        return "[" + ", ".join(f"{x:.3g}" for x in xs) + "]"
+
+    def rel_gap(a, b):
+        return np.median(np.abs(a - b) / np.maximum(np.abs(a), 1e-30))
+
+    g_all = [at(g, False) for g in one["grads"]]
+    gap_all = [rel_gap(a, at(b, False))
+               for a, b in zip(g_all, two["grads"])]
+    residual = float(np.max(np.abs(seen - made)))
+    sgd = DP_LR * np.max(np.abs(sum(a - b for a, b in zip(g1, g2))))
+    return (
+        f"{seen.size} elements, their gap max {np.max(np.abs(seen)):.3g}; "
+        f"Adam replayed there from each run's reduced gradients gives a "
+        f"gap max {np.max(np.abs(made)):.3g} (max residual {residual:.3g});"
+        f" SGD on the same gradients would give max {sgd:.3g}. By update: "
+        f"|g| median {fmt(np.median(np.abs(g)) for g in g1)} there against "
+        f"{fmt(np.median(np.abs(g)) for g in g_all)} over all elements; the "
+        f"runs' relative gradient gap median "
+        f"{fmt(rel_gap(a, b) for a, b in zip(g1, g2))} there against "
+        f"{fmt(gap_all)}; |u| gap max "
+        f"{fmt(np.max(np.abs(a - b)) for a, b in zip(u1, u2))} steps "
+        f"(Adam's eps {EPS:g})"), residual
+
+
+def cp_step(mesh, cfg: dict, params: dict, x: dict, device: str) -> dict:
+    """One SGD XE step of phase 16's transformer (``cfg``: ``CP_CONFIG``
+    in the smoke; a spawned rank reads no global of this module) from
+    ``params`` on the global batch ``x`` (``cp_inputs``): context-parallel
+    over the mesh's model axis with the long modality time-sharded where
+    the axis has two ranks, the plain step on one -> the loss and the
+    updated parameters (numpy)."""
+    import torch
+
+    from cst_captioning_tpu_torch.models.captioner import CaptionModel
+    from cst_captioning_tpu_torch.parallel import (DataParallel,
+                                                   context_parallel_xe_step,
+                                                   time_shard_memory)
+    from cst_captioning_tpu_torch.training.state import Optimizer
+    from cst_captioning_tpu_torch.training.steps import xe_step
+
+    dev = torch.device(device)
+    shapes = cfg["feat_shapes"]
+    model = CaptionModel(
+        cfg["vocab"], [d for _, d in shapes], embed_size=cfg["hidden"],
+        hidden_size=cfg["hidden"], attn_size=cfg["hidden"], drop_prob=0.0,
+        decoder_type="transformer", num_heads=cfg["heads"],
+        num_tx_layers=cfg["layers"], tx_max_len=cfg["max_len"] + 1)
+    model.load_state_dict({k: torch.as_tensor(v) for k, v in params.items()})
+    model.to(dev)
+    opt = Optimizer(model.parameters(), "sgd", learning_rate=cfg["lr"])
+    feats = [torch.from_numpy(x[f"feats{m}"]).to(dev)
+             for m in range(len(shapes))]
+    labels = torch.from_numpy(x["labels"]).long().to(dev)
+    weights = torch.ones(labels.shape[0], device=dev)
+    gen = torch.Generator(dev).manual_seed(0)
+    if mesh.model.size > 1:
+        model.shard_time(time_shard_memory(mesh, [t for t, _ in shapes],
+                                           (True, False)))
+        m = context_parallel_xe_step(model, opt, feats, labels, weights,
+                                     cfg["seq_per_img"], gen,
+                                     DataParallel(mesh))
+    else:
+        m = xe_step(model, opt, feats, labels, weights, cfg["seq_per_img"],
+                    gen)
+    return {"loss": float(m["loss"]),
+            "params": {k: v.detach().cpu().numpy()
+                       for k, v in model.state_dict().items()}}
+
+
+def sp_cp_rank(mesh, x: dict, cfg: dict, params: dict, cx: dict,
+               device: str):
+    """Phase 18 (c) on one rank of the (1, 2) mesh: the SP ops on the
+    global inputs ``x`` (``sp_inputs``), gathered whole: the dot
+    attention by the combine and by the ring, with and without its mask,
+    and the additive attention over the ragged T; then the CP step
+    (``cp_step``).  -> (their results, the CP step's)."""
+    import torch
+
+    from cst_captioning_tpu_torch.parallel import (sp_additive_attention,
+                                                   sp_cross_attention,
+                                                   time_sharding)
+
+    t = {k: torch.from_numpy(v).to(torch.device(device))
+         for k, v in x.items()}
+    out = {}
+    for tag, ring in (("dot", False), ("ring", True)):
+        out[tag] = sp_cross_attention(t["q"], t["k"], t["v"], mesh,
+                                      ring=ring)
+        out[f"{tag}_masked"] = sp_cross_attention(
+            t["q"], t["k"], t["v"], mesh, mask=t["mask"], ring=ring)
+    rows, times = time_sharding(mesh, t["qp"].shape[0], t["mem"].shape[1])
+    local = sp_additive_attention(
+        t["qp"][rows], t["mem"][rows, times], t["pm"][rows, times],
+        t["sv"], mesh.model, mask=t["amask"][rows, times])
+    out["additive"] = torch.cat(mesh.data.all_gather(local.contiguous()))
+    return ({k: v.cpu().numpy() for k, v in out.items()},
+            cp_step(mesh, cfg, params, cx, device))
+
+
+def live_children() -> list:
+    """The pids of this process's children that still run (read from
+    ``/proc``), but for multiprocessing's resource tracker, which lives
+    as long as this process once a spawned rank has started."""
+    me, pids = os.getpid(), []
+    for name in os.listdir("/proc"):
+        if not name.isdigit():
+            continue
+        try:
+            with open(f"/proc/{name}/stat") as f:
+                stat = f.read()
+        except OSError:
+            continue
+        fields = stat[stat.rindex(")") + 2:].split()
+        if int(fields[1]) != me or fields[0] == "Z":
+            continue
+        try:
+            with open(f"/proc/{name}/cmdline", "rb") as f:
+                cmd = f.read()
+        except OSError:
+            continue
+        if b"resource_tracker" not in cmd:
+            pids.append(int(name))
+    return pids
+
+
+def dp_phase(splits) -> dict:
+    """Phase 18: data and context parallelism on the card.  -> {kernel:
+    launches of (a) and (b)}."""
+    import numpy as np
+    import torch
+
+    from cst_captioning_tpu_torch.ops import attention_kernel as k1
+    from cst_captioning_tpu_torch.parallel import dryrun, make_mesh
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    before = set(live_children())
+    # (a) the train CLI in a one-rank NCCL group against the same run
+    # without the group flags.
+    t0 = time.perf_counter()
+    plain = dp_twin(splits, "plain", ())
+    group = ("--num_processes", "1", "--process_id", "0",
+             "--coordinator_address", f"127.0.0.1:{free_port()}")
+    nccl = dp_twin(splits, "nccl", group)
+    same_losses = plain["losses"] == nccl["losses"]
+    same_state = all(torch.equal(a, b) for a, b in zip(plain["state"],
+                                                       nccl["state"]))
+    print(f"phase 18 (a): {DP_XE_STEPS} XE + {DP_CST_STEPS} fused CST "
+          f"steps, backend {nccl['backend']} at world size 1 "
+          f"(data parallel: {nccl['grouped']}): losses bitwise equal "
+          f"{same_losses} {nccl['losses']}; {len(nccl['state'])} "
+          f"parameter and optimizer tensors bitwise equal {same_state}; "
+          f"launches {nccl['launches']} ({time.perf_counter() - t0:.1f} s)")
+    if nccl["backend"] != ("nccl" if DP_DEVICE == "cuda" else "gloo") \
+            or not nccl["grouped"] or plain["grouped"]:
+        fail(f"phase 18 (a): the group run did not run data-parallel over "
+             f"NCCL: {nccl['backend']}, {nccl['grouped']}")
+    if not (same_losses and same_state):
+        fail(f"phase 18 (a): the one-rank group differs from the run "
+             f"without it: {plain['losses']} vs {nccl['losses']}")
+    for name, ms in (("without the group", plain),
+                     ("in the one-rank NCCL group", nccl)):
+        print(f"phase 18 (d) [{card}]: train CLI {name}: XE ms/step "
+              f"{[round(x, 3) for x in ms['xe_ms']]}, fused CST ms/step "
+              f"{[round(x, 3) for x in ms['cst_ms']]}")
+
+    # (b) two ranks sharing the card over gloo against one rank, under
+    # Adam and under SGD.
+    t0 = time.perf_counter()
+    kw = dict(batch_size=DP_BATCH, xe_steps=2, decode_kernel="fused",
+              kernel_attention=True, config=DP_CONFIG, device=DP_DEVICE,
+              decode_chunk=CHUNK)
+    runs = {}
+    for optim in ("adam", "sgd"):
+        runs[optim] = (
+            dryrun.run_dp_pipeline(1, optim=optim, grads=optim == "adam",
+                                   **kw),
+            dryrun.run_dp_pipeline(2, backend="gloo", optim=optim,
+                                   grads=optim == "adam", **kw))
+    for optim, (one, two) in runs.items():
+        errs = {k: abs(two[k] - one[k]) / max(abs(one[k]), 1e-12)
+                for k in ("rl_loss", "fused_loss", "fused_reward")}
+        errs["xe_losses"] = max(abs(a - b) / abs(b) for a, b in
+                                zip(two["xe_losses"], one["xe_losses"]))
+        param_err = max(float(np.max(np.abs(two["params"][k]
+                                            - one["params"][k])))
+                        for k in one["params"])
+        out = {k: ~np.isclose(two["params"][k], one["params"][k],
+                              rtol=PARAM_RTOL, atol=PARAM_ATOL)
+               for k in one["params"]}
+        outliers = sum(int(o.sum()) for o in out.values()) / sum(
+            v.size for v in one["params"].values())
+        params_ok = (outliers == 0 if optim == "sgd" else
+                     outliers <= DP_OUTLIERS
+                     and param_err <= DP_STEP_FRACTION * DP_LR)
+        tokens = (np.array_equal(two["sampled"], one["sampled"])
+                  and np.array_equal(two["greedy"], one["greedy"]))
+        print(f"phase 18 (b) {optim}: run_dp_pipeline(2) (gloo, one card) "
+              f"against run_dp_pipeline(1) at B = {DP_BATCH} x "
+              f"{DP_CONFIG['seq_per_img']}, K1 and K2: tokens bitwise equal "
+              f"{tokens}; relative errors {errs}; parameters: share of all "
+              f"elements outside rtol {PARAM_RTOL} / atol {PARAM_ATOL} "
+              f"{outliers:.3g} (at most "
+              f"{0 if optim == 'sgd' else DP_OUTLIERS}), max abs difference "
+              f"{param_err:.3g}; ranks agree {two['ranks_agree']}; "
+              f"launches 1 rank {one['launches']}, 2 ranks "
+              f"{two['launches']}")
+        if optim == "adam":
+            reading, residual = adam_outliers(one, two, out)
+            print(f"phase 18 (b) adam, outside the bound: {reading}")
+            params_ok = params_ok and residual <= PARAM_ATOL
+        for n, r in ((1, one), (2, two)):
+            # every rank: K1 on each teacher-forced step (the XE steps,
+            # the RL step and the fused step's recompute), K2 twice a
+            # decode step of both rollouts
+            want = {"fused_additive_attention":
+                    n * DP_CONFIG["max_len"] * (kw["xe_steps"] + 2),
+                    "fused_decode_cell": n * 2 * int(
+                        r["rollout_steps"] + r["fused_rollout_steps"])}
+            got = {k: r["launches"][k] for k in want}
+            if got != want:
+                fail(f"phase 18 (b) {optim}: launches at {n} rank(s) "
+                     f"{got}, expected {want}")
+        if not (tokens and two["ranks_agree"] and max(errs.values()) <= TOL
+                and params_ok):
+            fail(f"phase 18 (b) {optim}: 2 ranks differ from 1: tokens "
+                 f"{tokens}, errors {errs}, parameters {param_err}, "
+                 f"outside the bound {outliers}")
+    # The SGD pair's times: the Adam pair copies every update's gradients
+    # to the host.
+    one, two = runs["sgd"]
+    for name, r in (("1 rank", one), ("2 ranks", two)):
+        print(f"phase 18 (d) [{card}]: run_dp_pipeline {name} (SGD) ms: "
+              + json.dumps({k: [round(x, 3) for x in v]
+                            for k, v in r["step_ms"].items()})
+              + ("  (two ranks share one card through host-staged gloo: "
+                 "a wiring check, not a scaling figure)" if r is two
+                 else ""))
+    print(f"phase 18 (b): {time.perf_counter() - t0:.1f} s")
+
+    # (c) SP ops and the CP transformer XE step over 2 ranks.
+    t0 = time.perf_counter()
+    x = sp_inputs()
+    params, cx = cp_inputs()
+    sp, cp = dryrun.run_ranks(2, sp_cp_rank, x, CP_CONFIG, params, cx,
+                              DP_DEVICE, model_parallel=2, device=DP_DEVICE,
+                              backend="gloo")[0]
+    ref_cp = cp_step(make_mesh(), CP_CONFIG, params, cx, DP_DEVICE)
+    dev = torch.device(DP_DEVICE)
+    t = {k: torch.from_numpy(v).to(dev) for k, v in x.items()}
+    k1_ctx, _ = k1.fused_additive_attention(
+        t["qp"], t["pm"][:, :T_MEM].contiguous(),
+        t["mem"][:, :T_MEM].contiguous(), t["sv"])
+    want = {"additive": k1_ctx,
+            "dot": full_attention(t["q"], t["k"], t["v"]),
+            "dot_masked": full_attention(t["q"], t["k"], t["v"], t["mask"])}
+    want["ring"], want["ring_masked"] = want["dot"], want["dot_masked"]
+    sp_err = {k: float(np.max(np.abs(sp[k] - w.cpu().numpy())))
+              for k, w in want.items()}
+    cp_loss_err = abs(cp["loss"] - ref_cp["loss"])
+    cp_param_err = max(float(np.max(np.abs(cp["params"][k]
+                                           - ref_cp["params"][k])))
+                       for k in ref_cp["params"])
+    print(f"phase 18 (c): SP over 2 ranks, max abs errors against K1 on "
+          f"the whole T = {T_MEM} (additive, B = {SP_B}) and one rank's "
+          f"full attention (T = {SP_T_LONG}): {sp_err}; CP transformer XE "
+          f"step (T = {' + '.join(str(t) for t, _ in CP_CONFIG['feat_shapes'])}"
+          f" over 2 ranks): loss {cp['loss']:.6f} against "
+          f"{ref_cp['loss']:.6f} (error {cp_loss_err:.3g}), parameters "
+          f"within {cp_param_err:.3g} ({time.perf_counter() - t0:.1f} s)")
+    if max(sp_err.values()) > TOL or not np.isfinite(cp["loss"]) \
+            or cp_loss_err > CP_LOSS_TOL or cp_param_err > CP_PARAM_TOL:
+        fail(f"phase 18 (c): SP {sp_err}, CP loss {cp_loss_err}, CP "
+             f"parameters {cp_param_err}")
+    # Every rank process has exited: the fleets of phases 13-15 that come
+    # next share the card with nothing of this phase.
+    left = [pid for pid in live_children() if pid not in before]
+    print(f"phase 18: child processes it left running: {left} (running "
+          f"before it: {sorted(before)})")
+    if left:
+        fail(f"phase 18 left child processes running: {left}")
+    torch.cuda.empty_cache()   # the fleets of phases 13-15 come next
+    seconds = time.perf_counter() - t_phase
+    launches = {k: plain["launches"][k] + nccl["launches"][k]
+                + sum(r["launches"][k] for pair in runs.values() for r in pair)
+                for k in ("fused_additive_attention", "fused_decode_cell")}
+    print(f"phase 18: {seconds:.1f} s (budget {DP_BUDGET_S:.0f} s); "
+          f"launches {launches}")
+    return launches
+
 
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "cst_captioning_tpu_torch")):
@@ -4621,6 +5162,10 @@ def main() -> int:
     # Phase 16: the model variants (transformer, manet, 2-layer, pooled,
     # --remat_cell) on phase 7's split, K1 and K2 at manet's T = 2.
     v_launch, v_measured = variants_phase(splits)
+
+    # Phase 18: data and context parallelism (the train CLI in a one-rank
+    # NCCL group, two gloo ranks sharing the card, SP and the CP step).
+    dp_launch = dp_phase(splits)
     del splits
 
     # Phase 13: serving, the rest (streams, the cache, the ladder,
@@ -4643,7 +5188,7 @@ def main() -> int:
     tel_launch = telemetry_phase()
 
     # The kernels line: one entry per kernel and storage dtype.  Launches:
-    # float32 from phases 4-7, 9, 10, 12-17, bfloat16 from phases 8, 11,
+    # float32 from phases 4-7, 9, 10, 12-18, bfloat16 from phases 8, 11,
     # 14g and 17 (the tune CLI; phase 16 launches none in bfloat16);
     # times at B=8, the
     # greedy serving batch (8-slot bucket), every measured batch under
@@ -4654,14 +5199,16 @@ def main() -> int:
         + t_launch["fused_additive_attention"]
         + resume_launch["fused_additive_attention"]
         + f_launch["fused_additive_attention"] + fleet_launch["K1"]
-        + proc_launch["K1"] + tel_launch[("K1", "float32")],
+        + proc_launch["K1"] + tel_launch[("K1", "float32")]
+        + dp_launch["fused_additive_attention"],
         ("K2", "float32"): v_launch[("K2", "float32")]
         + g_launch["fused_decode_cell"]
         + beam_launch["fused_decode_cell"]
         + t_launch["fused_decode_cell"] + e_launch
         + resume_launch["fused_decode_cell"]
         + f_launch["fused_decode_cell"] + rest_launch + fleet_launch["K2"]
-        + proc_launch["K2"] + tel_launch[("K2", "float32")],
+        + proc_launch["K2"] + tel_launch[("K2", "float32")]
+        + dp_launch["fused_decode_cell"],
         ("K1", "bfloat16"): v_launch[("K1", "bfloat16")]
         + s_launch["fused_additive_attention/bfloat16"]
         + bt_launch["fused_additive_attention/bfloat16"]

@@ -45,9 +45,11 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from . import default_device
 from .data.loader import feat_dtype
+from .data.sharding import add_shard_args, check_shard_args
 from .data.vocab import Vocab
 from .models.captioner import CaptionModel
 from .ops import launch_counts, reset_launch_counts
@@ -76,14 +78,6 @@ HEADLINE_METRIC = {
     "both": "min_xe_cst_captions_per_sec_per_chip",
     "serving": "serve_captions_per_sec_per_chip",
     "data": "data_feed_captions_per_sec",
-}
-
-#: Flags of the reference's bench whose parts the port has not yet:
-#: ``{dest: (the value that leaves them off, where they wait)}``.  Any
-#: other value is refused.
-REFUSED = {
-    "data_shards": (0, "ROADMAP Queue 1 item 5 (DP and CP)"),
-    "data_shard_id": (0, "ROADMAP Queue 1 item 5 (DP and CP)"),
 }
 
 #: The bench's names of the tunable axes where they are not the train
@@ -401,6 +395,7 @@ def bench_data(args) -> dict:
               num_videos=args.data_videos, workers=args.loader_workers,
               read_ms=args.data_read_ms, consumer_ms=args.data_consumer_ms,
               batches=args.data_batches, seed=777,
+              data_shards=args.data_shards, data_shard_id=args.data_shard_id,
               # Every worker can hold a ticket, with slack for emission
               # order; the occupancy gauge reports what is used.
               prefetch_size=max(4, args.loader_workers + 2))
@@ -441,7 +436,7 @@ def resolved_config(args) -> dict:
         config.update({k: getattr(args, k) for k in
                        ("loader_workers", "data_read_ms",
                         "data_consumer_ms", "data_batches", "data_videos",
-                        "data_compare")})
+                        "data_compare", "data_shards", "data_shard_id")})
     return config
 
 
@@ -544,16 +539,10 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     g.add_argument("--data_batches", type=positive_int, default=48)
     g.add_argument("--data_videos", type=positive_int, default=64)
     g.add_argument("--data_compare", type=int, default=1)
-    g = p.add_argument_group("refused: their parts are not ported")
-    for dest, (off, where) in REFUSED.items():
-        g.add_argument(f"--{dest}", default=off,
-                       type=str if off is None else type(off),
-                       help=f"not ported: {where}")
+    add_shard_args(g)
     raw = sys.argv[1:] if argv is None else list(argv)
     args = p.parse_args(raw)
-    for dest, (off, where) in REFUSED.items():
-        if getattr(args, dest) != off:
-            p.error(f"--{dest} is not ported yet: {where}")
+    check_shard_args(p, args)
     # The train CLI's resolution: explicit flag > tuning record > default.
     apply_tuned_defaults(args, raw, p, device=args.device,
                          names=AXIS_FLAGS)
@@ -575,13 +564,12 @@ def tuning_fields(args) -> dict:
 def run(args) -> dict:
     """Measure ``args.stage`` -> its JSON record."""
     device = default_device(args.device)
-    if device.type == "cuda":
-        name = torch.cuda.get_device_name(device)
-        count = torch.cuda.device_count()
-    else:
-        name, count = str(device), 0
+    name = (torch.cuda.get_device_name(device) if device.type == "cuda"
+            else str(device))
+    # The devices of this run: one per process of its group.
+    world = dist.get_world_size() if dist.is_initialized() else 1
     common = {"unit": "captions/s/chip", "platform": device.type,
-              "device": name, "num_devices": count, **tuning_fields(args),
+              "device": name, "num_devices": world, **tuning_fields(args),
               "config": resolved_config(args)}
     ncaps = args.batch_size * args.seq_per_img
     flops = analytic_step_flops(args)

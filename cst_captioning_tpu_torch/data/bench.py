@@ -21,6 +21,7 @@ import numpy as np
 
 from ..telemetry.registry import MetricsRegistry
 from .loader import CaptionLoader, prefetch_to_device
+from .sharding import resolve_shard_spec
 
 
 class SyntheticFeedDataset:
@@ -70,13 +71,16 @@ class SyntheticFeedDataset:
 def feed_probe(batch_size: int = 32, seq_per_img: int = 20,
                seq_len: int = 30, vocab: int = 8000,
                num_videos: int = 64, workers: int = 1,
+               data_shards: int = 0, data_shard_id: int = 0,
                read_ms: float = 10.0, consumer_ms: float = 0.0,
                batches: int = 48, prefetch_size: int = 4,
                warmup: int = 4, seed: int = 0,
                feat_shapes: Sequence[Tuple[int, int]] = ((28, 2048),
                                                         (1, 4096)),
                dataset=None) -> Dict:
-    """One feed-rate measurement at one worker count; -> the record.
+    """One feed-rate measurement at one worker count and shard
+    (``data_shards`` > 0: the stream of shard ``data_shard_id``,
+    ``data/sharding.py``); -> the record.
 
     1. **Drain**: the consumer takes ``batches`` batches as fast as they
        come: batches/s and captions/s.
@@ -92,7 +96,9 @@ def feed_probe(batch_size: int = 32, seq_per_img: int = 20,
             vocab=vocab, feat_shapes=feat_shapes, read_ms=read_ms,
             seed=seed)
     loader = CaptionLoader(dataset, batch_size=batch_size,
-                           seq_per_img=seq_per_img, shuffle=True, seed=seed)
+                           seq_per_img=seq_per_img, shuffle=True, seed=seed,
+                           shard_spec=resolve_shard_spec(data_shards,
+                                                         data_shard_id))
     caps_per_batch = batch_size * seq_per_img
     registry = MetricsRegistry()
     it = prefetch_to_device(loader, size=prefetch_size, workers=workers,
@@ -136,6 +142,8 @@ def feed_probe(batch_size: int = 32, seq_per_img: int = 20,
         "queue_depth_mean": rnd(np.mean(depths) if depths else None, 2),
         "queue_capacity": prefetch_size,
         "loader_workers": int(workers),
+        "data_shards": int(data_shards),
+        "data_shard_id": int(data_shard_id),
         "read_ms": float(read_ms),
         "batches": int(batches),
         "num_videos": int(num_videos),

@@ -10,7 +10,20 @@ has enough captions), and the WXE weights of the drawn rows ride along.
 ``iter_eval`` is one ordered pass whose last batch wraps around to the
 first videos (callers dedupe by video id).  ``skip_batches(n)`` replays
 the draws of ``n`` batches without assembling them, the data half of a
-bit-identical resume.  No sharding.
+bit-identical resume.
+
+Sharding, as the reference's: ``process_index``/``process_count``
+stride the split's videos over processes (the validation loaders of a
+multi-process run; ``training/evaluation.gather_strided_predictions``
+rebuilds every process's stride); an explicit ``shard_spec``
+(``data/sharding.py``, ``--data_shards``) makes the stream this shard's
+slice of each epoch's ONE global shuffle, and salts the caption-row
+generator with the shard id.  The two schemes exclude each other.  A
+data-parallel rank of the port (``dp_rank=(index, count)``) draws the
+GLOBAL plan, the same on every rank, and assembles only its own rows of
+it (``parallel.mesh.host_local_slice``: whole videos, with their
+``seq_per_img`` caption rows), so a batch's rows at world size N are
+those of world size 1.
 
 A batch is drawn in two halves: ``next_plan`` makes every random draw
 (videos, caption rows, labels, weights), sequentially; ``assemble`` reads
@@ -33,14 +46,16 @@ import logging
 import threading
 import time
 from dataclasses import dataclass
-from typing import Dict, Iterator, List, Optional, Sequence, Union
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from ..resilience.faults import FaultPlan, InjectedFault
+from ..parallel.mesh import host_local_slice
 from ..utils.locksan import declare_order, named_lock
 from .dataset import SplitData
+from .sharding import ShardSpec, shard_epoch_order
 
 log = logging.getLogger(__name__)
 
@@ -100,12 +115,17 @@ class BatchPlan:
 
 
 class CaptionLoader:
-    """Infinite shuffled batch stream over a split."""
+    """Infinite shuffled batch stream over a split (see the module doc
+    for ``process_index``, ``process_count``, ``shard_spec`` and
+    ``dp_rank``)."""
 
     def __init__(self, split: SplitData, batch_size: int,
                  seq_per_img: int = 20, shuffle: bool = True, seed: int = 0,
                  consensus_weights: Optional[Dict[str, np.ndarray]] = None,
-                 fault_plan: Optional[FaultPlan] = None):
+                 fault_plan: Optional[FaultPlan] = None,
+                 process_index: int = 0, process_count: int = 1,
+                 shard_spec: Optional[ShardSpec] = None,
+                 dp_rank: Optional[Tuple[int, int]] = None):
         self.ds = split
         # ``loader_err@batch=N`` raises from batch N's feature read.
         self._faults = fault_plan
@@ -114,8 +134,30 @@ class CaptionLoader:
         self.seq_per_img = seq_per_img
         self.shuffle = shuffle
         self.consensus_weights = consensus_weights
-        self._rng = np.random.default_rng(seed)
-        self._videos = np.arange(split.num_videos)
+        if shard_spec is not None and process_count != 1:
+            raise ValueError(
+                "pick ONE sharding scheme: an explicit ShardSpec "
+                "(--data_shards) replaces the per-process strided split, "
+                f"got shard_spec={shard_spec} AND process_count="
+                f"{process_count}")
+        self._shard = shard_spec
+        self._seed = seed
+        self._epochs_drawn = 0      # the epoch fed to the global shuffle
+        salt = shard_spec.shard_id if shard_spec is not None else process_index
+        self._rng = np.random.default_rng(seed + salt)
+        self.process_index = process_index
+        self.process_count = process_count
+        #: This rank's rows of every plan (``host_local_slice`` over the
+        #: videos), or None for the whole plan.
+        self._rows = (None if dp_rank is None or dp_rank[1] == 1
+                      else host_local_slice(batch_size, *dp_rank))
+        stride = ((shard_spec.shard_id, shard_spec.num_shards)
+                  if shard_spec is not None
+                  else (process_index, process_count))
+        self._videos = np.arange(split.num_videos)[stride[0]::stride[1]]
+        if len(self._videos) == 0:
+            raise ValueError("shard is empty; the split has fewer videos "
+                             "than shards")
         self._order = self._videos.copy()
         self._pos = len(self._order)        # shuffle on the first batch
         self.epoch = 0
@@ -133,7 +175,14 @@ class CaptionLoader:
         out = []
         while n > 0:
             if self._pos >= len(self._order):
-                if self.shuffle:
+                if self._shard is not None:
+                    # This shard's slice of the epoch's global shuffle: a
+                    # function of (seed, epoch), no caption-row draws.
+                    self._order = shard_epoch_order(
+                        self.ds.num_videos, self._seed, self._epochs_drawn,
+                        self._shard, shuffle=self.shuffle)
+                    self._epochs_drawn += 1
+                elif self.shuffle:
                     self._rng.shuffle(self._order)
                 self._pos = 0
                 self.epoch += 1
@@ -199,10 +248,16 @@ class CaptionLoader:
                 and self._faults.fire("loader_err", plan.seq)):
             raise InjectedFault(
                 f"injected transient feature-read error at batch {plan.seq}")
-        feats = self.ds.features(plan.ix) if read_feats else []
-        return Batch(feats=feats, labels=plan.labels,
-                     weights=plan.weights, video_ids=plan.video_ids,
-                     video_ix=plan.ix)
+        ix, labels, weights, vids = (plan.ix, plan.labels, plan.weights,
+                                     plan.video_ids)
+        if self._rows is not None:          # this rank's rows of the plan
+            r, s = self._rows, self.seq_per_img
+            caps = slice(r.start * s, r.stop * s)
+            ix, labels, weights, vids = (ix[r], labels[caps], weights[caps],
+                                         vids[r])
+        feats = self.ds.features(ix) if read_feats else []
+        return Batch(feats=feats, labels=labels, weights=weights,
+                     video_ids=vids, video_ix=ix)
 
     def next_batch(self) -> Batch:
         return self.assemble(self.next_plan())

@@ -43,6 +43,12 @@ kernel does not cover raises here, at construction (or ``clone``).
 this model's cell cloned at ``dtype=bfloat16`` over the same float32
 parameters.
 
+``shard_time(time_shard)`` makes the model context-parallel
+(``parallel/cp.py``, the reference's ``encode_constraint=
+time_shard_memory(mesh)``): the encoder's memory is this rank's time
+block and the transformer's cross-attention combines the blocks over
+the model axis.
+
 ``dtype`` is the compute dtype (``precision.py``; the reference's
 ``dtype``, set by ``--use_bfloat16``): the encoder, ``memory_proj``,
 ``state_init``, the cell and the logit head compute in it over float32
@@ -150,6 +156,7 @@ class CaptionModel(nn.Module):
         self.decoder_type = decoder_type
         self.fusion_type = fusion_type
         self.remat_cell = bool(remat_cell)
+        self.time_shard = None
         self._check_decode_kernel()
         self.encoder = FeatureEncoder(self.feat_dims, hidden_size,
                                       drop_prob=drop_prob, dtype=self.dtype,
@@ -203,6 +210,24 @@ class CaptionModel(nn.Module):
             out.decode_kernel = decode_kernel
             out._check_decode_kernel()
         return out
+
+    def shard_time(self, time_shard) -> "CaptionModel":
+        """Make this model context-parallel over ``time_shard``
+        (``parallel.cp.TimeShard``): the transformer over the temporal
+        memory only, as the reference tests it."""
+        if self.decoder_type != "transformer" or self.fusion_type != \
+                "temporal":
+            raise ValueError("context parallelism covers the transformer "
+                             "decoder over the temporal memory")
+        if tuple(time_shard.feat_times) and len(time_shard.feat_times) != \
+                len(self.feat_dims):
+            raise ValueError(f"{len(time_shard.feat_times)} modalities "
+                             f"sharded, the model has {len(self.feat_dims)}")
+        self.time_shard = time_shard
+        self.encoder.time_shard = time_shard
+        for block in self.tx.blocks:
+            block.cross_attn.time_axis = time_shard.axis
+        return self
 
     def _check_decode_kernel(self) -> None:
         if self.decode_kernel == "fused":

@@ -23,7 +23,11 @@ round otherwise:
 - ``gelu`` is the tanh approximation (``precision.gelu``).
 
 The attention is plain PyTorch: the reference computes it in XLA and
-reaches no TPU kernel.
+reaches no TPU kernel.  Under context parallelism (``time_axis`` set on
+the cross-attention by ``CaptionModel.shard_time``) the keys and values
+are this rank's time block of the memory and the softmax combines the
+blocks over the model axis (``parallel.sequence``
+``sp_multihead_cross_attention``, scores and softmax in float32).
 
 Autoregressive decoding works over a static token buffer, the
 reference's carry ``(buffer (B, Lmax), position)``: ``decode`` writes
@@ -43,6 +47,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
+from ..parallel.sequence import sp_multihead_cross_attention
 from ..precision import compute_dtype, dense, embed, gelu, softmax
 from .encoder import dropout, dropout_keep
 
@@ -89,6 +94,8 @@ class MultiHeadAttention(nn.Module):
         self.key = nn.Linear(hidden_size, hidden_size)
         self.value = nn.Linear(hidden_size, hidden_size)
         self.out = nn.Linear(hidden_size, hidden_size)
+        #: The model axis of a time-sharded memory, or None.
+        self.time_axis = None
 
     def _heads(self, x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
         b, n, _ = x.shape
@@ -103,6 +110,14 @@ class MultiHeadAttention(nn.Module):
         q = self._heads(xq, self.query)
         k = self._heads(xkv, self.key)
         v = self._heads(xkv, self.value)
+        if self.time_axis is not None:
+            if mask is not None or (train and self.drop_prob > 0):
+                raise ValueError("the time-sharded cross-attention takes "
+                                 "no mask and no dropout")
+            out = sp_multihead_cross_attention(q, k, v, self.time_axis)
+            b, n = out.shape[:2]
+            return dense(out.to(self.dtype).reshape(b, n, -1),
+                         self.out.weight, self.out.bias, self.dtype)
         q = q / torch.tensor(self.head_dim ** 0.5, dtype=self.dtype)
         scores = torch.einsum("bqhd,bkhd->bhqk", q, k)
         if mask is not None:
@@ -111,7 +126,7 @@ class MultiHeadAttention(nn.Module):
         w = softmax(scores, dim=-1)
         if train and self.drop_prob > 0:
             keep = dropout_keep(w.shape[-2:], self.drop_prob, generator,
-                                w.device)
+                                w.device, rows=False)
             w = w * (keep.to(w.dtype)
                      / torch.tensor(1.0 - self.drop_prob, dtype=w.dtype))
         out = torch.einsum("bhqk,bkhd->bqhd", w, v)

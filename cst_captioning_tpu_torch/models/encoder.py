@@ -13,7 +13,14 @@ attention memory is, by ``fusion``:
 
 With ``train=True`` and ``drop_prob`` > 0, dropout applies at the
 reference's sites: ``pooled`` first, then ``memory``.  Masks come from the
-``torch.Generator`` the caller passes (``dropout``).
+``torch.Generator`` the caller passes (``dropout``), or from a
+data-parallel rank's ``parallel.mesh.RowDraw``: its rows of the global
+draw.
+
+Under context parallelism (``time_shard``, ``parallel/cp.py``) the
+memory is this rank's time block of the temporal memory: a time-sharded
+modality comes in as its time range only and its mean is the all-reduced
+block sums over its global T; a replicated modality comes in whole.
 
 ``dtype`` is the compute dtype (``precision.py``): the features
 are cast to it first, as the reference casts them, and every Dense
@@ -27,17 +34,23 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
+from ..parallel.mesh import RowDraw
+from ..parallel.sequence import all_sum
 from ..precision import compute_dtype, dense
 
 FUSIONS = ("temporal", "modality")
 
 
 def dropout_keep(shape, p: float, generator: Optional[torch.Generator],
-                 device) -> torch.Tensor:
+                 device, rows: bool = True) -> torch.Tensor:
     """The keep mask of ``dropout``: ``uniform < 1 - p`` from
-    ``generator``, which must live on ``device``."""
+    ``generator``, which must live on ``device``.  A ``RowDraw`` draws
+    this rank's rows of the global mask; ``rows=False`` marks a mask
+    without a batch axis, the same on every rank."""
     if generator is None:
         raise ValueError("dropout needs an explicit torch.Generator")
+    if isinstance(generator, RowDraw):
+        return generator.rand(shape, device, rows) < 1.0 - p
     return torch.rand(shape, generator=generator, device=device) < 1.0 - p
 
 
@@ -71,12 +84,18 @@ class FeatureEncoder(nn.Module):
         self.embed = nn.ModuleList(nn.Linear(int(d), hidden_size)
                                    for d in feat_dims)
         self.fuse = nn.Linear(len(feat_dims) * hidden_size, hidden_size)
+        #: The context-parallel layout (``parallel/cp.TimeShard``), or None.
+        self.time_shard = None
 
     def forward(self, feats: Sequence[torch.Tensor], train: bool = False,
                 generator: Optional[torch.Generator] = None):
         if len(feats) != len(self.embed):
             raise ValueError(f"expected {len(self.embed)} modalities, got "
                              f"{len(feats)}")
+        ts = self.time_shard
+        if ts is not None and train and self.drop_prob > 0:
+            raise ValueError("context parallelism trains without dropout "
+                             "(drop_prob 0)")
         projected, pooled = [], []
         for m, (x, embed) in enumerate(zip(feats, self.embed)):
             if x.ndim != 3:
@@ -84,8 +103,17 @@ class FeatureEncoder(nn.Module):
                     f"modality {m}: expected (B, T, D), got {tuple(x.shape)}")
             h = torch.relu(dense(x.to(self.dtype), embed.weight, embed.bias,
                                  self.dtype))
-            projected.append(h)                        # (B, T_m, H)
-            pooled.append(h.mean(dim=1))               # (B, H)
+            if ts is None:
+                projected.append(h)                    # (B, T_m, H)
+                pooled.append(h.mean(dim=1))           # (B, H)
+            elif ts.sharded[m]:                        # its time range only
+                projected.append(h)
+                pooled.append(all_sum(h.sum(dim=1), ts.axis)
+                              / ts.feat_times[m])
+            else:                                      # replicated, whole
+                a, b = ts.ranges[m]
+                projected.append(h[:, a:b])
+                pooled.append(h.mean(dim=1))
         memory = (torch.stack(pooled, dim=1) if self.fusion == "modality"
                   else torch.cat(projected, dim=1))
         fused = torch.tanh(dense(torch.cat(pooled, dim=-1), self.fuse.weight,

@@ -5,6 +5,10 @@ Masking convention (0 = EOS labels): position t is supervised iff every
 earlier target token is nonzero, i.e. the words up to and including the
 first 0 (the model must learn to emit EOS); everything after is padding.
 
+``total``, where given, turns the batch's mask total into the global
+batch's before the division (``parallel.dp.DataParallel.sum``: a
+data-parallel rank's loss is its share of the global loss).
+
 The log-softmax runs in the logits' dtype (``precision.log_softmax``);
 bfloat16 log-probabilities become float32 where they meet the float32
 mask, weights or advantage, as in the reference.
@@ -12,7 +16,7 @@ mask, weights or advantage, as in the reference.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -34,9 +38,16 @@ def token_logprobs(logits: torch.Tensor,
     return logp.gather(-1, targets.long()[..., None])[..., 0]
 
 
+def _denominator(mask: torch.Tensor,
+                 total: Optional[Callable[[torch.Tensor], torch.Tensor]]
+                 ) -> torch.Tensor:
+    n = mask.sum()
+    return (n if total is None else total(n)).clamp(min=1.0)
+
+
 def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
-                       weights: Optional[torch.Tensor] = None
-                       ) -> torch.Tensor:
+                       weights: Optional[torch.Tensor] = None,
+                       total: Optional[Callable] = None) -> torch.Tensor:
     """Masked sequence XE; with ``weights`` (N,) the WXE criterion (each
     caption's token losses times its consensus weight).  Normalised by the
     *unweighted* mask total, so XE and WXE share a scale and learning rates
@@ -45,14 +56,15 @@ def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
     nll = -token_logprobs(logits, targets) * mask
     if weights is not None:
         nll = nll * weights[:, None]
-    return nll.sum() / mask.sum().clamp(min=1.0)
+    return nll.sum() / _denominator(mask, total)
 
 
 def reward_loss(sample_logprobs: torch.Tensor, sampled: torch.Tensor,
-                advantage: torch.Tensor) -> torch.Tensor:
+                advantage: torch.Tensor,
+                total: Optional[Callable] = None) -> torch.Tensor:
     """REINFORCE: ``-E[advantage * log p(sampled)]`` masked to the sampled
     sequence (words + first EOS).  ``advantage`` (N,) is a constant: no
     gradient flows into it."""
     mask = sequence_mask(sampled)
     loss = -(sample_logprobs * advantage.detach()[:, None] * mask)
-    return loss.sum() / mask.sum().clamp(min=1.0)
+    return loss.sum() / _denominator(mask, total)

@@ -6,7 +6,10 @@ is kept and everything after it is 0 with logprob 0.  The rollout is a
 Python loop of eager decode steps; ``decode_chunk`` > 0 runs it in chunks
 of that many steps and stops once every row has emitted EOS, producing
 exactly the tokens of the full-length loop (skipped steps would only
-emit the zeros a finished row emits).  Multinomial sampling and the
+emit the zeros a finished row emits).  ``finish`` turns the local
+all-finished flag into the decision to stop (a data-parallel rollout
+stops when every rank's rows have finished, so every rank's noise
+generator advances as far as a single rank's would).  Multinomial sampling and the
 SCST baseline rollout belong to the training slice.
 """
 
@@ -94,7 +97,8 @@ def gumbel_noise(generator: torch.Generator,
 def sample_tokens(step: Callable, init_carry, batch: int, max_len: int,
                   greedy: Union[bool, torch.Tensor] = True,
                   temperature: float = 1.0, noise: Optional[Noise] = None,
-                  decode_chunk: int = 0, return_steps: bool = False):
+                  decode_chunk: int = 0, return_steps: bool = False,
+                  finish: Optional[Callable[[torch.Tensor], bool]] = None):
     """Roll out ``max_len`` steps from BOS (=0).
 
     ``greedy`` is a bool (the whole batch) or a per-row (N,) bool tensor,
@@ -143,7 +147,7 @@ def sample_tokens(step: Callable, init_carry, batch: int, max_len: int,
             finished = finished | (emit == 0)
             prev = emit
             t += 1
-        if chunk < max_len and bool(all_finished(finished)):
+        if chunk < max_len and (finish or bool)(all_finished(finished)):
             break
     return (tokens, logprobs, t) if return_steps else (tokens, logprobs)
 
@@ -152,7 +156,8 @@ def sample_tokens(step: Callable, init_carry, batch: int, max_len: int,
 def sample_captions(model, feats, max_len: int, seq_per_img: int = 1,
                     greedy: bool = False, temperature: float = 1.0,
                     noise: Optional[Noise] = None, decode_chunk: int = 0,
-                    return_steps: bool = False):
+                    return_steps: bool = False,
+                    finish: Optional[Callable[[torch.Tensor], bool]] = None):
     """Encode once, roll out ``seq_per_img`` captions per video ->
     (tokens (B*S, L), logprobs (B*S, L)) [, steps]."""
     memory, proj_mem, pooled = model.encode(feats)
@@ -164,14 +169,16 @@ def sample_captions(model, feats, max_len: int, seq_per_img: int = 1,
                          pooled.shape[0],
                          max_len, greedy=greedy, temperature=temperature,
                          noise=noise, decode_chunk=decode_chunk,
-                         return_steps=return_steps)
+                         return_steps=return_steps, finish=finish)
 
 
 @torch.no_grad()
 def sample_with_baseline(model, feats, max_len: int, seq_per_img: int,
                          temperature: float = 1.0,
                          noise: Optional[Noise] = None,
-                         decode_chunk: int = 0, return_steps: bool = False):
+                         decode_chunk: int = 0, return_steps: bool = False,
+                         finish: Optional[Callable[[torch.Tensor], bool]]
+                         = None):
     """Multinomial rollout and greedy SCST baseline in ONE rollout: the B
     greedy rows ride after the B*S sampled rows, so the decode cell runs
     once a step over B*S + B rows.  -> (sampled (B*S, L), sampled logprobs
@@ -191,7 +198,7 @@ def sample_with_baseline(model, feats, max_len: int, seq_per_img: int,
                         max_len,
                         greedy=greedy_rows, temperature=temperature,
                         noise=noise, decode_chunk=decode_chunk,
-                        return_steps=return_steps)
+                        return_steps=return_steps, finish=finish)
     tokens, logprobs = out[:2]
     res = (tokens[:ns], logprobs[:ns], tokens[ns:])
     return res + (out[2],) if return_steps else res

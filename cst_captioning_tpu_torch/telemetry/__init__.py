@@ -59,15 +59,16 @@ class Telemetry:
         self._closed = False
 
     @classmethod
-    def from_opts(cls, opt, registry: Optional[MetricsRegistry] = None
-                  ) -> "Telemetry":
-        """From the CLI namespace: ``--trace_dir`` arms the tracer,
-        ``--step_timing`` (on by default under ``--trace_dir``) the phase
-        gauges.  The owner attaches the sinks."""
+    def from_opts(cls, opt, registry: Optional[MetricsRegistry] = None,
+                  process_index: int = 0) -> "Telemetry":
+        """From the CLI namespace: ``--trace_dir`` arms the tracer (its
+        trace names ``process_index``), ``--step_timing`` (on by default
+        under ``--trace_dir``) the phase gauges.  The owner attaches the
+        sinks."""
         tracer = None
         trace_dir = getattr(opt, "trace_dir", None)
         if trace_dir:
-            tracer = SpanTracer(trace_dir)
+            tracer = SpanTracer(trace_dir, process_index=process_index)
         step_timing = getattr(opt, "step_timing", None)
         if step_timing is None:
             step_timing = tracer is not None

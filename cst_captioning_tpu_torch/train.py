@@ -44,6 +44,22 @@ only) and ``--eval_metric`` picks the best checkpoint.  The last line of
 standard output is a JSON summary: best score, its step, the last step,
 the metric and the checkpoint directory.
 
+Data parallelism over ``torch.distributed`` (``parallel/``), one process
+per device: start N processes, each with ``--num_processes N
+--process_id i --coordinator_address host:port`` (the same address for
+all); CUDA ranks join over NCCL (rank i binds GPU ``i %`` the visible
+count), ``--device cpu`` ranks over gloo.  ``--batch_size`` is the
+global batch (a multiple of N), and the run gives world size 1's losses,
+tokens and parameters (``training/trainer.py``).  ``--num_devices`` 0
+means the world size; any other value must equal it.  ``--num_processes
+1`` with an address starts a one-rank group (its collectives are
+copies); without an address, or at 0, no group is started.  The group
+starts under a watchdog of ``--wedge_timeout`` seconds (exit 124 when a
+peer never comes).  ``--data_shards``/``--data_shard_id`` (fallbacks
+``CST_DATA_SHARDS``/``CST_DATA_SHARD_ID``) make one process's training
+stream its shard of each epoch's global shuffle (``data/sharding.py``);
+refused under more than one process, as the reference refuses it.
+
 Telemetry, with the reference's flags (``training/trainer.py``):
 ``--trace_dir`` (host spans as Chrome traces; implies ``--step_timing``),
 ``--step_timing`` (per-interval ``data_wait_ms``/``compute_ms``/
@@ -84,14 +100,20 @@ import json
 import os
 import sys
 
+import torch.distributed as dist
+
 from .data.dataset import add_split_args, refuse_h5_flags
+from .data.sharding import add_shard_args, check_shard_args
 from .metrics.coco_eval import KNOWN_EVAL_METRICS
 from .resilience.exitcodes import EXIT_ADVANTAGE_ABORT, EXIT_OK, EXIT_PREEMPTED
 from .resilience.faults import FaultPlan, fault_plan_arg
+from .parallel.dp import distributed_init
 from .resilience.preemption import PreemptedExit, PreemptionHandler
 from .training.state import OPTIMIZERS
-from .training.trainer import NegativeAdvantageAbort, Trainer
+from .training.trainer import (DATA_SHARDS_REFUSAL, NegativeAdvantageAbort,
+                               Trainer)
 from .tuning.record import apply_tuned_defaults
+from .utils.watchdog import ProgressWatchdog
 from .utils.platform import configure_cli_logging
 from .weights import FUSION_TYPES, MODEL_TYPES
 
@@ -153,6 +175,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     g.add_argument("--loader_workers", type=positive_int, default=1,
                    help="prefetch threads assembling batches ahead of the "
                         "step; the batch order is the same at any count")
+    add_shard_args(g)
     g = p.add_argument_group("model")
     g.add_argument("--model_type", default="lstm", choices=MODEL_TYPES,
                    help="decoder: the attention-LSTM or the Transformer")
@@ -315,6 +338,17 @@ def parse_args(argv=None) -> argparse.Namespace:
     g.add_argument("--device", default=None,
                    help="torch device; default cuda (raises without a GPU)")
     g.add_argument("--loglevel", default="INFO")
+    g = p.add_argument_group("parallelism (one process per device)")
+    g.add_argument("--num_devices", type=int, default=0,
+                   help="devices of the data-parallel run; 0 = the world "
+                        "size (--num_processes), the only other value "
+                        "allowed")
+    g.add_argument("--coordinator_address", default=None,
+                   help="host:port of the process group's rendezvous")
+    g.add_argument("--num_processes", type=int, default=0,
+                   help="processes (one device each); 0 = one process, no "
+                        "process group")
+    g.add_argument("--process_id", type=int, default=0)
     g = p.add_argument_group("telemetry")
     g.add_argument("--trace_dir", default=None,
                    help="host span traces (data_wait, compute, score, "
@@ -345,6 +379,14 @@ def parse_args(argv=None) -> argparse.Namespace:
     raw = sys.argv[1:] if argv is None else list(argv)
     refuse_h5_flags(p, raw)
     opt = p.parse_args(raw)
+    check_shard_args(p, opt)
+    world = max(1, opt.num_processes)
+    if opt.num_devices not in (0, world):
+        p.error(f"--num_devices {opt.num_devices}: the port drives one "
+                f"device per process, so it must be 0 or the world size "
+                f"(--num_processes {opt.num_processes}, i.e. {world})")
+    if world > 1 and opt.data_shards:
+        p.error(DATA_SHARDS_REFUSAL.format(n=world, k=opt.data_shard_id))
     apply_tuned_defaults(opt, raw, p, device=opt.device)
     _warn_overlap_under_device_rewards(opt, raw)
     return opt
@@ -370,6 +412,12 @@ def main(argv=None) -> int:
     # at the first step boundary.
     preemption = PreemptionHandler().install()
     try:
+        # A peer that never comes must still end in 124, not a hang.
+        with ProgressWatchdog(opt.wedge_timeout,
+                              describe=lambda: "during distributed_init"):
+            distributed_init(
+                opt.coordinator_address, opt.num_processes, opt.process_id,
+                device=opt.device or "cuda")
         trainer = Trainer(opt, preemption=preemption)
         try:
             result = trainer.train()
@@ -386,6 +434,8 @@ def main(argv=None) -> int:
             trainer.close()
     finally:
         preemption.uninstall()
+        if dist.is_initialized():
+            dist.destroy_process_group()
     print(json.dumps({"best_score": result["best_score"],
                       "best_step": result["best_step"],
                       "last_step": result["last_step"],

@@ -18,7 +18,8 @@ strings.  Baselines:
 from __future__ import annotations
 
 import logging
-from typing import Dict, List, Mapping, Optional, Sequence, Tuple, Union
+from typing import (Callable, Dict, List, Mapping, Optional, Sequence,
+                    Tuple, Union)
 
 import numpy as np
 
@@ -67,6 +68,11 @@ def host_scorer(tokenized_refs: Mapping[str, Sequence[str]],
     return CiderD(df_mode="corpus", df=df, ref_len=float(ndocs)), "python"
 
 
+def local_means(rows: Dict[str, np.ndarray]) -> Dict[str, float]:
+    """The mean of each entry's per-row values."""
+    return {k: float(np.mean(v)) for k, v in rows.items()}
+
+
 class RewardComputer:
     """Per-batch CIDEr-D rewards and advantage for the CST stage."""
 
@@ -74,7 +80,9 @@ class RewardComputer:
                  tokenized_refs: Mapping[str, Sequence[str]],
                  seq_per_img: int, baseline: str = "greedy",
                  consensus_scores: Optional[Mapping[str, np.ndarray]] = None,
-                 scb_captions: int = 0, telemetry=None):
+                 scb_captions: int = 0, telemetry=None,
+                 means: Optional[Callable[[Dict[str, np.ndarray]],
+                                          Dict[str, float]]] = None):
         if baseline not in BASELINES:
             raise ValueError(f"baseline {baseline!r} not in {BASELINES}")
         if baseline == "scb-sample" and seq_per_img < 2:
@@ -90,6 +98,10 @@ class RewardComputer:
         # A ``telemetry.Telemetry``: scoring is the host path's gap, so
         # it is the ``score`` step phase (and span) when armed.
         self._telemetry = telemetry
+        # The stats' means of per-row values: this batch's own by
+        # default; under a process group the trainer passes
+        # ``DataParallel.host_means``, the global batch's.
+        self._means = means or local_means
         self._warned_missing = False
         self._scb_gt: Dict[str, float] = {}
         if consensus_scores is not None:
@@ -151,6 +163,6 @@ class RewardComputer:
             baseline = np.repeat([self._scb_gt.get(v, 0.0)
                                   for v in video_ids], s)
         advantage = (r_sample - baseline).astype(np.float32)
-        return advantage, {"reward": float(r_sample.mean()),
-                           "baseline": float(np.mean(baseline)),
-                           "advantage": float(advantage.mean())}
+        return advantage, self._means({"reward": r_sample,
+                                       "baseline": np.asarray(baseline),
+                                       "advantage": advantage})

@@ -16,6 +16,15 @@ dropout, instead of keeping the rollout's graph, as the reference does.
 Steps return their metrics as tensors on the device (``loss``, and
 ``grad_norm`` before the clip); nothing here waits for the device.
 
+``dp`` (``parallel.dp.DataParallel``), where given, makes a step the
+global-view step of a data-parallel rank (the reference's
+``data_parallel_jit``): the inputs are the rank's rows of the global
+batch, the loss is its masked sum over the global mask total, the
+gradients are summed over the ranks before the norm, the clip and the
+update, the dropout masks and the rollout noise are the rank's rows of
+the global draws, and every metric is the global batch's.  Every rank
+ends each step with the same parameters and optimizer state.
+
 ``guard=True`` folds the divergence guard's device half into the update
 (``apply_gradients_guarded``): ``ok = isfinite(loss) & isfinite(norm)``
 on the device selects the new or the old parameters and optimizer state,
@@ -55,52 +64,76 @@ def apply_gradients_guarded(opt: Optimizer, loss: torch.Tensor,
     return metrics
 
 
+def _backward(opt: Optimizer, loss: torch.Tensor, dp) -> torch.Tensor:
+    """The loss's backward -> the step's loss metric: the loss itself on
+    one rank; under ``dp`` this rank's share of the backward, the
+    gradients summed over the ranks, and the global loss."""
+    if dp is None:
+        loss.backward()
+        return loss
+    dp.backward(loss)
+    dp.reduce_grads(opt.params)
+    return dp.sum(loss)
+
+
+def _mean(x: torch.Tensor, dp) -> torch.Tensor:
+    return x.mean() if dp is None else dp.mean(x)
+
+
 def xe_step(model, opt: Optimizer, feats: Sequence[torch.Tensor],
             labels: torch.Tensor, weights: torch.Tensor, seq_per_img: int,
-            generator: torch.Generator, guard: bool = False
+            generator: torch.Generator, guard: bool = False, dp=None
             ) -> Dict[str, torch.Tensor]:
     """One XE (all-ones ``weights``) or WXE (consensus weights) update
     with dropout on, masks from ``generator``."""
     opt.zero_grad()
     logits = model(feats, labels, seq_per_img, train=True,
-                   generator=generator)
-    loss = cross_entropy_loss(logits, labels, weights)
-    loss.backward()
-    return apply_gradients_guarded(opt, loss, guard)
+                   generator=generator if dp is None else dp.draw(generator))
+    loss = cross_entropy_loss(logits, labels, weights,
+                              total=None if dp is None else dp.sum)
+    return apply_gradients_guarded(opt, _backward(opt, loss, dp), guard)
 
 
 def rollout(model, feats: Sequence[torch.Tensor], max_len: int,
             seq_per_img: int, noise: Noise, temperature: float = 1.0,
-            greedy_baseline: bool = True, decode_chunk: int = 0
+            greedy_baseline: bool = True, decode_chunk: int = 0, dp=None
             ) -> Tuple[torch.Tensor, Optional[torch.Tensor], int]:
     """-> (sampled (B*S, L), greedy (B, L) or None, decode steps run).
     With ``greedy_baseline`` the greedy rows ride the sampled rows' rollout
     (one K2 batch of B*S + B rows); SCB baselines roll out the samples
-    only."""
+    only.  Under ``dp`` the noise is the rank's rows of the global draw
+    and the early exit waits for every rank."""
+    finish = None
+    if dp is not None:
+        b = feats[0].shape[0]
+        noise = dp.noise_rows(noise, [b * seq_per_img]
+                              + ([b] if greedy_baseline else []))
+        finish = dp.all_true
     if greedy_baseline:
         sampled, _, greedy, steps = sample_with_baseline(
             model, feats, max_len, seq_per_img, temperature=temperature,
-            noise=noise, decode_chunk=decode_chunk, return_steps=True)
+            noise=noise, decode_chunk=decode_chunk, return_steps=True,
+            finish=finish)
         return sampled, greedy, steps
     sampled, _, steps = sample_captions(
         model, feats, max_len, seq_per_img=seq_per_img, greedy=False,
         temperature=temperature, noise=noise, decode_chunk=decode_chunk,
-        return_steps=True)
+        return_steps=True, finish=finish)
     return sampled, None, steps
 
 
 def rl_grad_step(model, opt: Optimizer, feats: Sequence[torch.Tensor],
                  sampled: torch.Tensor, advantage: torch.Tensor,
-                 seq_per_img: int, guard: bool = False
+                 seq_per_img: int, guard: bool = False, dp=None
                  ) -> Dict[str, torch.Tensor]:
     """REINFORCE update: teacher-force the samples WITHOUT dropout (the
     policy reinforced is the one that drew them), then ``reward_loss``."""
     opt.zero_grad()
     logits = model(feats, sampled, seq_per_img, train=False)
-    loss = reward_loss(token_logprobs(logits, sampled), sampled, advantage)
-    loss.backward()
-    metrics = apply_gradients_guarded(opt, loss, guard)
-    metrics["sample_len"] = sequence_mask(sampled).sum(dim=1).mean()
+    loss = reward_loss(token_logprobs(logits, sampled), sampled, advantage,
+                       total=None if dp is None else dp.sum)
+    metrics = apply_gradients_guarded(opt, _backward(opt, loss, dp), guard)
+    metrics["sample_len"] = _mean(sequence_mask(sampled).sum(dim=1), dp)
     return metrics
 
 
@@ -112,7 +145,7 @@ def fused_cst_step(model, opt: Optimizer, feats: Sequence[torch.Tensor],
                    scb_gt_baseline: Optional[torch.Tensor] = None,
                    ref_chunk: Optional[int] = None, guard: bool = False,
                    decode_chunk: int = 0,
-                   mark: Optional[Callable[[str], None]] = None
+                   mark: Optional[Callable[[str], None]] = None, dp=None
                    ) -> Dict[str, torch.Tensor]:
     """The whole CST iteration on the device (counterpart of
     ``make_fused_cst_step``): rollout, on-device CIDEr-D of the samples
@@ -139,7 +172,8 @@ def fused_cst_step(model, opt: Optimizer, feats: Sequence[torch.Tensor],
     mark("start")
     sampled, greedy, steps = rollout(
         model, feats, max_len, seq_per_img, noise, temperature=temperature,
-        greedy_baseline=baseline == "greedy", decode_chunk=decode_chunk)
+        greedy_baseline=baseline == "greedy", decode_chunk=decode_chunk,
+        dp=dp)
     mark("rollout")
     hyp_vix = torch.repeat_interleave(video_ix, seq_per_img)
     r_sample = ciderd_scores(sampled, hyp_vix, corpus, tables,
@@ -159,14 +193,15 @@ def fused_cst_step(model, opt: Optimizer, feats: Sequence[torch.Tensor],
     mark("reward")
     opt.zero_grad()
     logits = model(feats, sampled, seq_per_img, train=False)
-    loss = reward_loss(token_logprobs(logits, sampled), sampled, advantage)
-    loss.backward()
-    metrics = apply_gradients_guarded(opt, loss, guard)
+    loss = reward_loss(token_logprobs(logits, sampled), sampled, advantage,
+                       total=None if dp is None else dp.sum)
+    metrics = apply_gradients_guarded(opt, _backward(opt, loss, dp), guard)
     mark("grad")
+    # decode steps the rollout ran (max_len without the early exit)
+    steps = torch.full((), float(steps), device=loss.device)
     metrics.update({
-        "sample_len": sequence_mask(sampled).sum(dim=1).mean(),
-        "reward": r_sample.mean(), "baseline": r_base.mean(),
-        "advantage": advantage.mean(),
-        # decode steps the rollout ran (max_len without the early exit)
-        "rollout_steps": torch.full((), float(steps), device=loss.device)})
+        "sample_len": _mean(sequence_mask(sampled).sum(dim=1), dp),
+        "reward": _mean(r_sample, dp), "baseline": _mean(r_base, dp),
+        "advantage": _mean(advantage, dp),
+        "rollout_steps": steps if dp is None else dp.max(steps)})
     return metrics

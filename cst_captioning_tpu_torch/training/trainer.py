@@ -1,5 +1,5 @@
 """One training stage, XE, WXE or CST (counterpart of the reference's
-``training/trainer.py``, single device).
+``training/trainer.py``).
 
 The stage runs an epoch loop over the training split: one update per
 batch, validation at every epoch boundary (greedy decode by default,
@@ -81,6 +81,27 @@ Resilience, after the reference's trainer:
   detector of the negative-advantage regime warns once, or raises
   ``NegativeAdvantageAbort`` (exit 4).
 
+Data parallelism (``parallel/``): in a process group of W ranks, one
+device each (``train.py``'s ``--num_processes``, ``--process_id`` and
+``--coordinator_address``), ``--batch_size`` is the global batch; every
+rank draws the same global plan and assembles its own rows of it
+(``CaptionLoader(dp_rank=...)``), and every step is global-view
+(``parallel.dp.DataParallel``): the losses, tokens and parameters of
+world size 1.  The CST metrics are the global batch's on both paths (on
+the host-reward path each rank scores its own rows and
+``DataParallel.host_means`` all-reduces the sums), so every rank's
+negative-advantage check takes the same decision.  A batch W does not
+divide is refused (the reference shrinks its mesh to a divisor; a
+process group cannot shrink), and so is
+``--data_shards`` (each rank already holds its own rows) and
+``--fault_plan`` (its drills act on one process).  The validation loader
+strides the split by rank and the predictions are gathered, so every
+rank scores the whole split.  Rank 0 alone writes: ``metrics.jsonl``,
+``telemetry.json``, TensorBoard, the heartbeat and the checkpoints, the
+other ranks waiting at a barrier while it saves; all ranks resume from
+the same checkpoint.  A preemption signal on any rank stops every rank
+at the same step boundary.
+
 Data are the split files of ``--train_*`` and ``--val_*``
 (``data/dataset.py``: memory-mapped ``.npy`` features, or in RAM with
 ``--preload_feats 1``), or in-memory synthetic splits
@@ -112,11 +133,13 @@ from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import default_device
 from ..data.dataset import CaptionDataset, SplitData, paths_from_opt
 from ..data.loader import (Batch, CaptionLoader, feat_dtype, host_feats,
                            prefetch_to_device)
+from ..data.sharding import resolve_shard_spec
 from ..data.shapes import parse_feat_shapes
 from ..data.synthetic import SyntheticSpec, generate
 from ..metrics.ciderd import load_corpus_df
@@ -128,6 +151,7 @@ from ..ops import launch_counts, launch_counts_by_dtype
 from ..ops.device_ciderd import (auto_ref_chunk, match_tensor_bytes,
                                  table_bytes)
 from ..ops.sampling import gumbel_noise
+from ..parallel.dp import DataParallel
 from ..resilience.faults import FaultPlan
 from ..resilience.guard import DivergenceGuard
 from ..resilience.preemption import PreemptedExit, PreemptionHandler
@@ -160,6 +184,16 @@ Completed = List[Tuple[int, Dict[str, Any]]]
 #: ``captions_per_sec`` are added).
 TRAIN_RECORD_KEYS = ("advantage", "baseline", "grad_norm", "loss", "reward",
                      "sample_len")
+
+
+#: Why ``--data_shards`` is refused under more than one process (the
+#: reference's words).
+DATA_SHARDS_REFUSAL = (
+    "--data_shards with multiple processes needs a DISTINCT "
+    "--data_shard_id (or CST_DATA_SHARD_ID) per host: this launch gave "
+    "every one of the {n} processes shard {k}, which would duplicate it "
+    "and drop the rest; either assign per-host shard ids or drop "
+    "--data_shards for the process-strided split")
 
 
 class NegativeAdvantageAbort(RuntimeError):
@@ -283,14 +317,21 @@ def build_model(opt, vocab_size: int, feat_dims,
 
 
 class Trainer:
-    """One stage on one device.  ``splits`` (train, val) may be passed in
-    to skip building them from the options; ``preemption`` is the
+    """One stage on one device (one rank of a process group when one is
+    started: see the module doc).  ``splits`` (train, val) may be passed
+    in to skip building them from the options; ``preemption`` is the
     installed ``PreemptionHandler`` whose flag the loop honors (None: the
-    loop reads no signal flag)."""
+    loop reads no signal flag).  ``device_tables``, a dict that several
+    trainers of one process share, keeps the fused path's device CIDEr-D
+    tables (read-only) under their references, vocabulary and device: a
+    trainer takes the tables an earlier one built for the same split
+    instead of building them again (a ``--train_cached_tokens`` df is
+    never shared)."""
 
     def __init__(self, opt,
                  splits: Optional[Tuple[SplitData, SplitData]] = None,
-                 preemption: Optional[PreemptionHandler] = None):
+                 preemption: Optional[PreemptionHandler] = None,
+                 device_tables: Optional[dict] = None):
         if opt.eval_metric not in KNOWN_EVAL_METRICS:
             # At start-up, not after the first epoch's validation scores
             # 0.0 for ever.
@@ -298,9 +339,15 @@ class Trainer:
                              f"of {KNOWN_EVAL_METRICS}")
         self.opt = opt
         self._preempt = preemption
+        self._device_tables = device_tables
+        #: This process's rank and the world size (0 and 1 without a
+        #: process group); rank 0 alone writes.
+        self.rank = dist.get_rank() if dist.is_initialized() else 0
+        self.world = dist.get_world_size() if dist.is_initialized() else 1
+        self._check_world(opt)
         # The registry always exists; the tracer and the phase timer only
         # under --trace_dir / --step_timing (telemetry/__init__.py).
-        self.telemetry = Telemetry.from_opts(opt)
+        self.telemetry = Telemetry.from_opts(opt, process_index=self.rank)
         self.registry = registry = self.telemetry.registry
         self.registry.declare("preempt_signals", "preempt_saves",
                               "negative_advantage_aborts")
@@ -319,7 +366,8 @@ class Trainer:
             opt.wedge_timeout,
             describe=lambda: (f"last loop step {progress['loop_step']}; "
                               f"checkpoints in {ck}"),
-            heartbeat_path=os.path.join(ck, "heartbeat.json"),
+            heartbeat_path=(os.path.join(ck, "heartbeat.json")
+                            if self.rank == 0 else None),
             payload=lambda: {**progress, **registry.heartbeat_payload()}
         ).start()
         try:
@@ -327,6 +375,24 @@ class Trainer:
         except BaseException:
             self._watchdog.stop()
             raise
+
+    def _check_world(self, opt) -> None:
+        """What a process group refuses: a global batch its world size
+        does not divide, ``--data_shards`` and ``--fault_plan``."""
+        if self.world == 1:
+            return
+        if opt.batch_size % self.world:
+            raise ValueError(
+                f"--batch_size {opt.batch_size} is the global batch and "
+                f"must be a multiple of the world size {self.world} (the "
+                "reference shrinks its mesh to a divisor; a process group "
+                "cannot shrink)")
+        if getattr(opt, "data_shards", 0):
+            raise ValueError(DATA_SHARDS_REFUSAL.format(
+                n=self.world, k=getattr(opt, "data_shard_id", 0)))
+        if opt.fault_plan:
+            raise ValueError("--fault_plan acts on one process: run its "
+                             "drills at one process")
 
     def _init(self, opt, splits) -> None:
         self._faults = FaultPlan.parse(opt.fault_plan)
@@ -340,6 +406,9 @@ class Trainer:
             log.warning("FAULT INJECTION ARMED: %s; this run breaks itself "
                         "on purpose", self._faults)
         self.device = default_device(opt.device)
+        #: The global-view step's collectives, under a process group (at
+        #: world size 1 too: its one-rank collectives are copies).
+        self.dp = DataParallel() if dist.is_initialized() else None
         self.train_split, self.val_split = splits or build_splits(opt)
         self._watchdog.beat()
         self.vocab = self.train_split.vocab
@@ -371,15 +440,19 @@ class Trainer:
         weights = None
         if opt.use_consensus_weights:
             weights = self._wxe_weights()
-        self.loader = CaptionLoader(self.train_split, opt.batch_size,
-                                    seq_per_img=opt.seq_per_img,
-                                    seed=opt.seed, consensus_weights=weights,
-                                    fault_plan=self._faults)
+        self.loader = CaptionLoader(
+            self.train_split, opt.batch_size, seq_per_img=opt.seq_per_img,
+            seed=opt.seed, consensus_weights=weights,
+            fault_plan=self._faults,
+            shard_spec=resolve_shard_spec(getattr(opt, "data_shards", 0),
+                                          getattr(opt, "data_shard_id", 0)),
+            dp_rank=(self.rank, self.world))
         #: The prefetched training stream, started at the first batch.
         self._batches: Optional[Iterator[Batch]] = None
         self.val_loader = CaptionLoader(
             self.val_split, opt.eval_batch_size or opt.batch_size,
-            seq_per_img=1, shuffle=False)
+            seq_per_img=1, shuffle=False, process_index=self.rank,
+            process_count=self.world)
         self.optimizer = Optimizer(
             self.model.parameters(), optim=opt.optim,
             learning_rate=opt.learning_rate, grad_clip=opt.grad_clip,
@@ -418,10 +491,14 @@ class Trainer:
         self._captions = 0          # dispatched since the last train record
         self._last_saved_step = -1
         self._last_save_monotonic = time.monotonic()
+        if self.rank != 0:          # after rank 0's quarantine scan
+            self._barrier()
         self.ckpt = checkpoint.CheckpointManager(
             opt.checkpoint_path, max_to_keep=opt.max_checkpoints,
             fault_plan=self._faults, registry=self.registry,
-            tracer=self.telemetry.tracer)
+            tracer=self.telemetry.tracer, readonly=self.rank != 0)
+        if self.rank == 0:
+            self._barrier()
         self._flops_per_step: Optional[float] = None
         if self.telemetry.phases is not None:
             self._flops_per_step = caption_step_flops(
@@ -591,7 +668,8 @@ class Trainer:
             self.vocab, scorer,
             refs, seq_per_img=opt.seq_per_img, baseline=opt.rl_baseline,
             consensus_scores=self.train_split.consensus,
-            scb_captions=opt.scb_captions, telemetry=hooked)
+            scb_captions=opt.scb_captions, telemetry=hooked,
+            means=None if self.dp is None else self.dp.host_means)
         self.pipeline = RewardPipeline(
             self._pipeline_rollout, self._pipeline_grad,
             lambda ctx, s, g: self.reward_computer(ctx["video_ids"], s, g),
@@ -616,9 +694,20 @@ class Trainer:
             ) from None
         external_df, external_ref_len = self._corpus_df() or (None, None)
         t0 = time.perf_counter()
-        corpus, tables, _ = build_device_tables(
-            refs, self.vocab.word_to_ix, device=self.device,
-            external_df=external_df, external_ref_len=external_ref_len)
+        shared = self._device_tables
+        key = None
+        if shared is not None and external_df is None:
+            key = (tuple((v, tuple(c)) for v, c in refs.items()),
+                   tuple(sorted(self.vocab.word_to_ix.items())),
+                   str(self.device))
+        if key is not None and key in shared:
+            corpus, tables = shared[key]
+        else:
+            corpus, tables, _ = build_device_tables(
+                refs, self.vocab.word_to_ix, device=self.device,
+                external_df=external_df, external_ref_len=external_ref_len)
+            if key is not None:
+                shared[key] = corpus, tables
         build_s = time.perf_counter() - t0
         scb_gt = None
         if opt.rl_baseline == "scb-gt":
@@ -681,7 +770,7 @@ class Trainer:
                       torch.from_numpy(batch.labels).long().to(self.device),
                       torch.from_numpy(batch.weights).to(self.device),
                       self.opt.seq_per_img, self.dropout_gen,
-                      guard=self.guard is not None)
+                      guard=self.guard is not None, dp=self.dp)
         self.step += 1
         return [(self.step - 1, out)]
 
@@ -692,7 +781,7 @@ class Trainer:
                       self.opt.seq_per_img, self.noise,
                       temperature=self.opt.temperature,
                       greedy_baseline=self.opt.rl_baseline == "greedy",
-                      decode_chunk=self.opt.decode_chunk)
+                      decode_chunk=self.opt.decode_chunk, dp=self.dp)
         marks("rollout")
         ctx.update(marks=marks, rollout_steps=out[2])
         return out
@@ -702,7 +791,8 @@ class Trainer:
         marks("start")
         m = rl_grad_step(self.model, self.optimizer, feats, sampled,
                          torch.from_numpy(advantage).to(self.device),
-                         self.opt.seq_per_img, guard=self.guard is not None)
+                         self.opt.seq_per_img, guard=self.guard is not None,
+                         dp=self.dp)
         marks("grad")
         m.update(phase_marks=(ctx["marks"], marks),
                  rollout_steps=ctx["rollout_steps"])
@@ -731,7 +821,7 @@ class Trainer:
             temperature=opt.temperature,
             scb_gt_baseline=self.fused["scb_gt"],
             ref_chunk=self.fused["ref_chunk"], guard=self.guard is not None,
-            decode_chunk=opt.decode_chunk, mark=marks)
+            decode_chunk=opt.decode_chunk, mark=marks, dp=self.dp)
         m["phase_marks"] = (marks,)
         self.last_rollout_steps = m["rollout_steps"]
         return [(step, m)]
@@ -889,10 +979,16 @@ class Trainer:
         self.telemetry.flush(fsync=True)
         self._watchdog.beat()
 
+    def _barrier(self) -> None:
+        if self.dp is not None:
+            dist.barrier()
+
     def _save_recovery(self, verify: bool = False) -> None:
         payload = self.checkpoint_payload()
         with self.telemetry.phase("ckpt"):
-            self.ckpt.save_recovery(self.step, payload, verify=verify)
+            if self.rank == 0:
+                self.ckpt.save_recovery(self.step, payload, verify=verify)
+            self._barrier()
         self._after_save(payload)
 
     def _note(self, completed: Completed, total: int, clock: list) -> None:
@@ -1013,6 +1109,12 @@ class Trainer:
                     else "checkpoint already current")
         raise PreemptedExit(self.step, h.signal_name or "signal", saved)
 
+    def _preempt_requested(self) -> bool:
+        """The preemption flag, taken by every rank together: a signal on
+        any rank stops them all at this boundary."""
+        flag = self._preempt.requested
+        return flag if self.world == 1 else self.dp.any(flag)
+
     def _step_faults(self, step: int) -> None:
         """The loop's own drill sites, at the boundary before ``step``."""
         if self._faults.fire("preempt", step):
@@ -1061,7 +1163,7 @@ class Trainer:
             self._progress["loop_step"] = self.step
             if window is not None:
                 self._profile_tick(window)
-            if self._preempt is not None and self._preempt.requested:
+            if self._preempt is not None and self._preempt_requested():
                 self._honor_preemption(total, clock)
             if self._faults is not None:
                 self._step_faults(self.step)
@@ -1102,9 +1204,12 @@ class Trainer:
                 self.patience += 1
             payload = self.checkpoint_payload(score)
             with self.telemetry.phase("ckpt"):
-                self.ckpt.save(self.step, payload, score=score, extra={
-                    "opt": vars(opt), "val_scores": scores,
-                    "patience": self.patience, "history": self.history})
+                if self.rank == 0:
+                    self.ckpt.save(self.step, payload, score=score, extra={
+                        "opt": vars(opt), "val_scores": scores,
+                        "patience": self.patience,
+                        "history": self.history})
+                self._barrier()
             self._after_save(payload)
             if (opt.max_patience and self.patience >= opt.max_patience
                     and self.step // bpe >= opt.min_epochs):
@@ -1127,6 +1232,8 @@ class Trainer:
         ``<checkpoint_path>/tb`` with ``--tensorboard 1`` (a warning
         without the ``tensorboard`` package, as the reference)."""
         opt = self.opt
+        if self.rank != 0:
+            return
         self.registry.add_sink(JsonlSink(os.path.join(
             opt.checkpoint_path, "metrics.jsonl")))
         if opt.tensorboard:

@@ -228,18 +228,22 @@ def test_serving_stream_and_cache_records(case, ref_probe_record, capsys):
         assert "cache_speedup" not in rec
 
 
-@pytest.mark.parametrize("flag", sorted(bench.REFUSED))
+@pytest.mark.parametrize("flag", ["data_shard_id", "data_shards"])
 def test_refused_flags_raise(flag, capsys):
-    value = {"serve_blackbox": "bb.json", "scan_unroll": "4",
-             "replicas": "2", "serve_kill_replica": "0"}.get(flag, "1")
+    """The bench refuses none of the reference bench's flags any more:
+    the last two, ``--data_shards`` and ``--data_shard_id``, reach the
+    data stage.  What they refuse is an out-of-range value, as a usage
+    error."""
+    bad = {"data_shards": ["--data_shards", "-1"],
+           "data_shard_id": ["--data_shard_id", "1"]}[flag]
     with pytest.raises(SystemExit) as e:
-        bench.parse_args(TINY + [f"--{flag}", value])
+        bench.parse_args(TINY + bad)
     assert e.value.code == 2
-    assert "not ported" in capsys.readouterr().err
-    # The value that leaves the part off is accepted.
-    off = bench.REFUSED[flag][0]
-    if off is not None:
-        bench.parse_args(TINY + [f"--{flag}", str(off)])
+    assert f"--{flag}" in capsys.readouterr().err
+    args = bench.parse_args(TINY + ["--stage", "data", "--data_shards", "2",
+                                    "--data_shard_id", "1"])
+    assert (args.data_shards, args.data_shard_id) == (2, 1)
+    assert bench.resolved_config(args)[flag] == getattr(args, flag)
 
 
 def test_raises_without_a_gpu_unless_cpu(monkeypatch):

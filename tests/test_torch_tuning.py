@@ -254,7 +254,7 @@ def test_bench_without_a_record_is_as_before(monkeypatch):
                                          "tuning_record": None}
     assert (args.decode_chunk, args.overlap_depth, args.device_rewards,
             args.decode_kernel) == (8, 2, 1, "fused")
-    assert "scan_unroll" not in bench.REFUSED
+    assert args.scan_unroll == 1
 
 
 def test_provenance_rides_into_infos_and_telemetry(rec, tmp_path):
