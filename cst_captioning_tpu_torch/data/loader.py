@@ -206,8 +206,10 @@ class CaptionLoader:
         would have drawn, and nothing else.  A run resumed at step ``n``
         then reads the batches an uninterrupted run of the same seed reads
         from step ``n`` on."""
+        # cstlint-torch: disable=device-scalar-fetch -- host int argument, never a tensor
         for _ in range(max(0, int(n))):
             for v in self._next_indices(self.batch_size):
+                # cstlint-torch: disable=device-scalar-fetch -- host numpy offsets of the dataset's caption table, never tensors
                 self._select_caption_rows(
                     int(self.ds.label_end[v] - self.ds.label_start[v]))
             self._batches_served += 1
@@ -223,13 +225,16 @@ class CaptionLoader:
         weights = np.ones(self.batch_size * s, dtype=np.float32)
         vids = []
         for b, v in enumerate(ix):
+            # cstlint-torch: disable=device-scalar-fetch -- host numpy index row from _next_indices, never a tensor
             caps = self.ds.captions_for(int(v))
             sel = self._select_caption_rows(caps.shape[0])
             labels[b * s:(b + 1) * s] = caps[sel]
+            # cstlint-torch: disable=device-scalar-fetch -- host numpy index row from _next_indices, never a tensor
             vid = self.ds.video_ids[int(v)]
             vids.append(vid)
             if (self.consensus_weights is not None
                     and vid in self.consensus_weights):
+                # cstlint-torch: disable=device-scalar-fetch -- consensus weights are a host pickle's numpy arrays, never tensors
                 w = np.asarray(self.consensus_weights[vid], dtype=np.float32)
                 weights[b * s:(b + 1) * s] = w[sel]
         seq = self._batches_served
@@ -275,6 +280,7 @@ class CaptionLoader:
             if len(ix) < self.batch_size:
                 ix = np.concatenate(
                     [ix, np.resize(self._videos, self.batch_size - len(ix))])
+            # cstlint-torch: disable=device-scalar-fetch -- host numpy index rows (eval iteration), never tensors
             yield Batch(
                 feats=self.ds.features(ix),
                 labels=np.zeros((self.batch_size * self.seq_per_img,
@@ -317,15 +323,15 @@ class _OrderedPrefetcher:
         self._registry = registry
         self._plan_lock = named_lock("data.loader.plan")   # the draws
         self._qlock = named_lock("data.loader.queue")  # _buffer, _next_emit
-        self._poisoned = False               # under _plan_lock
+        self._poisoned = False               # cstlint-torch: guarded_by=self._plan_lock
         # Keyed on ``BatchPlan.seq``; the stream may start past 0 (after
         # ``skip_batches``).
-        self._buffer: Dict[int, object] = {}
-        self._next_emit = loader.batches_served
+        self._buffer: Dict[int, object] = {}  # cstlint-torch: guarded_by=self._qlock
+        self._next_emit = loader.batches_served  # cstlint-torch: guarded_by=self._qlock
         self._avail = threading.Event()      # a deposit landed
         self._closed = threading.Event()     # the consumer is gone
         self._tickets = threading.Semaphore(self._capacity)
-        self._threads: List[threading.Thread] = []
+        self._threads: List[threading.Thread] = []  # cstlint-torch: owned_by=consumer
         if registry is not None:
             # Declared at 0: "armed, no retry" reads apart from "absent".
             registry.declare("loader_retries",

@@ -42,7 +42,6 @@ from __future__ import annotations
 import argparse
 import json
 import logging
-import os
 import sys
 import time
 from typing import Any, Dict, List, Tuple
@@ -55,6 +54,7 @@ from .data.dataset import (CaptionDataset, SplitData, add_split_args,
 from .data.loader import CaptionLoader
 from .data.vocab import Vocab
 from .metrics.coco_eval import language_eval
+from .resilience.integrity import atomic_json_write
 from .serving.buckets import parse_buckets
 from .serving.engine import serve_decode_split
 from .train import parse_args as train_args
@@ -229,22 +229,15 @@ def _evaluate(args: argparse.Namespace, beat) -> Dict[str, Any]:
             "serving_s": serving_s, "score_s": score_s}
 
 
-def write_json_atomic(path: str, obj) -> None:
-    tmp = f"{path}.{os.getpid()}.tmp"
-    with open(tmp, "w") as f:
-        json.dump(obj, f, indent=2)
-    os.replace(tmp, path)
-
-
 def main(argv=None) -> int:
     args = parse_args(argv)
     configure_cli_logging(args.loglevel)
     out = evaluate(args)
     log.info("scores: %s", {k: round(v, 4) for k, v in out["scores"].items()})
     if args.result_file:
-        write_json_atomic(args.result_file,
+        atomic_json_write(args.result_file,
                           {"scores": out["scores"],
-                           "predictions": out["predictions"]})
+                           "predictions": out["predictions"]}, indent=2)
         log.info("wrote %s", args.result_file)
     print(json.dumps(out["scores"]))
     return 0

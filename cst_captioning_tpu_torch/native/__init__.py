@@ -49,7 +49,7 @@ GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 # One lock for building and loading both libraries: two threads racing a
 # first use never build twice or load a half-written library.
 _lock = named_lock("native.build")
-_loaded: Dict[str, ctypes.CDLL] = {}
+_loaded: Dict[str, ctypes.CDLL] = {}  # cstlint-torch: guarded_by=_lock
 #: Seconds g++ took for each library this process built (by source stem);
 #: a library found built already is not in it.
 BUILD_SECONDS: Dict[str, float] = {}

@@ -147,6 +147,7 @@ def sample_tokens(step: Callable, init_carry, batch: int, max_len: int,
             finished = finished | (emit == 0)
             prev = emit
             t += 1
+        # cstlint-torch: disable=device-scalar-fetch -- the designed early exit: one host read of one flag per decode_chunk steps (none when one chunk spans max_len); the reference's while_loop reads its predicate on the device, which a CUDA launch sequence cannot, and finish (parallel/dp.py) makes every rank stop together
         if chunk < max_len and (finish or bool)(all_finished(finished)):
             break
     return (tokens, logprobs, t) if return_steps else (tokens, logprobs)

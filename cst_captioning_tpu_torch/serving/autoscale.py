@@ -146,19 +146,19 @@ class Autoscaler:
                          "autoscale_decisions.jsonl")
             if out_dir else None)
         # Decision state below is tick-thread-only...
-        self._window: deque = deque(maxlen=self.slow_samples)
-        self._last_seq = 0
-        self._last_up_t: Optional[float] = None
-        self._last_down_t: Optional[float] = None
-        self._sat_ticks = 0
-        self._calm_ticks = 0
-        self._seq = 0
-        self.decisions: List[Dict[str, Any]] = []
+        self._window: deque = deque(maxlen=self.slow_samples)  # cstlint-torch: owned_by=supervisor_tick
+        self._last_seq = 0  # cstlint-torch: owned_by=supervisor_tick
+        self._last_up_t: Optional[float] = None  # cstlint-torch: owned_by=supervisor_tick
+        self._last_down_t: Optional[float] = None  # cstlint-torch: owned_by=supervisor_tick
+        self._sat_ticks = 0  # cstlint-torch: owned_by=supervisor_tick
+        self._calm_ticks = 0  # cstlint-torch: owned_by=supervisor_tick
+        self._seq = 0  # cstlint-torch: owned_by=supervisor_tick
+        self.decisions: List[Dict[str, Any]] = []  # cstlint-torch: owned_by=supervisor_tick
         # ...except the brownout rung, which the health/heartbeat thread
         # may read through brownout_rung()/status() while the tick
         # thread escalates — hence the named state lock (LOCK_ORDER).
         self._state_lock = named_lock("serving.autoscale.state")
-        self._rung = 0
+        self._rung = 0  # cstlint-torch: guarded_by=self._state_lock
         self._c = {name: 0 for name in AUTOSCALE_COUNTERS}
         if registry is not None:
             registry.declare(*AUTOSCALE_COUNTERS)

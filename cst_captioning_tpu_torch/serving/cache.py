@@ -75,7 +75,7 @@ class ResultCache:
     def __init__(self, capacity: int):
         self.capacity = int(capacity)
         self._lock = named_lock("serving.result_cache")
-        self._entries: "OrderedDict[Tuple, np.ndarray]" = OrderedDict()
+        self._entries: "OrderedDict[Tuple, np.ndarray]" = OrderedDict()  # cstlint-torch: guarded_by=self._lock
 
     def get(self, key: Tuple) -> Optional[np.ndarray]:
         with self._lock:

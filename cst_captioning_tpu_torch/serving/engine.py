@@ -287,15 +287,15 @@ class ServingEngine:
         self._tracer = tracer
         self._lifecycle = lifecycle
         self.clock = clock
-        self._queue: deque = deque()
-        self._residents: List[Optional[_Resident]] = []
+        self._queue: deque = deque()  # cstlint-torch: owned_by=scheduler
+        self._residents: List[Optional[_Resident]] = []  # cstlint-torch: owned_by=scheduler
         self._slots_n = 0
-        self._dev: Optional[Dict[str, Any]] = None
+        self._dev: Optional[Dict[str, Any]] = None  # cstlint-torch: owned_by=scheduler
         self._latencies: deque = deque(maxlen=1024)
         self._chunk_wall: deque = deque(maxlen=128)
         self._dropped: List[Dropped] = []
-        self._stream_chunks: List[StreamChunk] = []
-        self._hits: List[Completion] = []
+        self._stream_chunks: List[StreamChunk] = []  # cstlint-torch: owned_by=scheduler
+        self._hits: List[Completion] = []  # cstlint-torch: owned_by=scheduler
         self._ttft: deque = deque(maxlen=1024)
         self._gaps: deque = deque(maxlen=4096)
         self._stream_emitted = 0
@@ -973,7 +973,9 @@ class ServingEngine:
                 self._emit_stream_delta(res)
             if fin[slot] or res.steps >= self.max_len:
                 if k > 1 and scores_h is None:
+                    # cstlint-torch: disable=device-scalar-fetch -- the designed batched harvest: ONE fetch of all slots' beam scores per chunk (only when some slot finished), not per-step scalars; the host backtrack needs them
                     scores_h = self._dev["scores"].cpu()
+                    # cstlint-torch: disable=device-scalar-fetch -- same one-per-chunk batched harvest as scores_h above
                     lengths_h = self._dev["lengths"].cpu()
                 done.append(self._harvest(slot, scores_h, lengths_h))
         self._expire_residents(self.clock())

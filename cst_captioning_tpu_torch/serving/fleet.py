@@ -173,23 +173,23 @@ class FleetRouter:
         self._lifecycle = lifecycle
         self.clock = clock
         # Scheduler-owned state (the module docstring's contract).
-        self._replicas: List[Replica] = [
+        self._replicas: List[Replica] = [  # cstlint-torch: owned_by=scheduler
             Replica(k, engine_factory, devs[k]) for k in range(n)]
-        self._dropped: List[Dropped] = []
-        self._stream_chunks: List[StreamChunk] = []
-        self._evac_done: List[Completion] = []
+        self._dropped: List[Dropped] = []  # cstlint-torch: owned_by=scheduler
+        self._stream_chunks: List[StreamChunk] = []  # cstlint-torch: owned_by=scheduler
+        self._evac_done: List[Completion] = []  # cstlint-torch: owned_by=scheduler
         # Fleet stream watermarks: tokens already SENT per request vs
         # tokens emitted by the request's CURRENT owning engine.
-        self._stream_sent: Dict[Any, int] = {}
-        self._stream_cur: Dict[Any, int] = {}
-        self._stream_seq: Dict[Any, int] = {}
+        self._stream_sent: Dict[Any, int] = {}  # cstlint-torch: owned_by=scheduler
+        self._stream_cur: Dict[Any, int] = {}  # cstlint-torch: owned_by=scheduler
+        self._stream_seq: Dict[Any, int] = {}  # cstlint-torch: owned_by=scheduler
         self._routed = 0
         self._rerouted = 0
         self._fleet_shed = 0
         self._restarts = 0
         self._kills = 0
         self._health_lock = named_lock("serving.fleet.health")
-        self._snapshots: List[Dict[str, Any]] = []  # under _health_lock
+        self._snapshots: List[Dict[str, Any]] = []  # cstlint-torch: guarded_by=self._health_lock
         if registry is not None:
             registry.declare(*FLEET_COUNTERS)
         for rep in self._replicas:

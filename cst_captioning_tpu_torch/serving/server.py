@@ -126,7 +126,7 @@ class CaptionServer:
                  feats_for: Callable[[Any], Optional[list]], *,
                  handler=None, out=None, watchdog=None, registry=None,
                  health_source=None, lifecycle=None, blackbox_path=None):
-        self.engine = engine
+        self.engine = engine  # cstlint-torch: owned_by=scheduler
         self.vocab = vocab
         self.feats_for = feats_for
         self.handler = handler
@@ -143,7 +143,7 @@ class CaptionServer:
         self._inbox: "queue.Queue" = queue.Queue()
         self._eof = threading.Event()
         self._write_lock = named_lock("serving.server.write")
-        self._draining = False
+        self._draining = False  # cstlint-torch: owned_by=scheduler
         #: The socket front end's bound port; None until it binds.
         self.bound_port: Optional[int] = None
         self._published_health = self.health_payload()
@@ -469,6 +469,7 @@ class CaptionServer:
             moved = self._respond_stream_all() or moved
             for comp in comps:
                 self._respond_completion(comp)
+            # cstlint-torch: disable=device-scalar-fetch -- comps is the engine's host list of completions; bool() of a list fetches nothing
             moved = self._respond_dropped_all() or bool(comps) or moved
             self._published_health = self.health_payload()
             if self._eof.is_set() and self.engine.idle \

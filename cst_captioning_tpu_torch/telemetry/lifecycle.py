@@ -183,8 +183,8 @@ class LifecycleTracer:
         self._tracer = tracer
         self._registry = registry
         self._lock = named_lock("telemetry.lifecycle")
-        self._events: deque = deque(maxlen=self.max_events)  # under self._lock
-        self._emitted = 0                                    # under self._lock
+        self._events: deque = deque(maxlen=self.max_events)  # cstlint-torch: guarded_by=self._lock
+        self._emitted = 0                                    # cstlint-torch: guarded_by=self._lock
         self._dumps = 0
         #: State providers the blackbox pulls from at dump time (all
         #: optional; attach whatever this deployment has).

@@ -32,14 +32,14 @@ class MetricsRegistry:
 
     def __init__(self):
         self._lock = named_lock("telemetry.registry")
-        self._counters: Dict[str, float] = {}
-        self._gauges: Dict[str, float] = {}
-        self._hists: Dict[str, Dict[str, float]] = {}
+        self._counters: Dict[str, float] = {}  # cstlint-torch: guarded_by=self._lock
+        self._gauges: Dict[str, float] = {}  # cstlint-torch: guarded_by=self._lock
+        self._hists: Dict[str, Dict[str, float]] = {}  # cstlint-torch: guarded_by=self._lock
         self._info: Dict[str, Any] = {}
-        self._meta: Dict[str, Any] = {}
+        self._meta: Dict[str, Any] = {}  # cstlint-torch: guarded_by=self._lock
         self._sinks: List[Any] = []
-        self._last_train: Optional[Dict[str, Any]] = None
-        self._last_val: Optional[Dict[str, Any]] = None
+        self._last_train: Optional[Dict[str, Any]] = None  # cstlint-torch: guarded_by=self._lock
+        self._last_val: Optional[Dict[str, Any]] = None  # cstlint-torch: guarded_by=self._lock
 
     # -- instruments -------------------------------------------------------
 

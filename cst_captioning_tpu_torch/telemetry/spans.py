@@ -94,11 +94,11 @@ class SpanTracer:
             SpanTracer._seq += 1
         self._process_index = int(process_index)
         self._lock = named_lock("telemetry.spans")
-        self._events: List[Dict[str, Any]] = []     # under _lock
-        self._named_tids: set = set()               # under _lock
+        self._events: List[Dict[str, Any]] = []     # cstlint-torch: guarded_by=self._lock
+        self._named_tids: set = set()               # cstlint-torch: guarded_by=self._lock
         self._max = max(1000, int(max_buffered_events))
-        self._part = 0                              # under _lock
-        self._closed = False                        # under _lock
+        self._part = 0                              # cstlint-torch: guarded_by=self._lock
+        self._closed = False                        # cstlint-torch: guarded_by=self._lock
         # Every ts is microseconds since the tracer started; the wall
         # clock at that moment rides in the file's otherData.
         self._t_epoch = time.perf_counter()

@@ -62,6 +62,14 @@ val files through ``--test_*``.  ``--start_from DIR`` starts CST from
 ``DIR`` (a train-CLI directory or an exported checkpoint, e.g. the
 reference chain's WXE stage through ``export_for_torch.py checkpoint``)
 in place of this chain's WXE stage.
+
+``--seed N`` is every train stage's ``--seed`` (default 123, the
+reference chain's).  Another seed runs into ``OUT_DIR/seed<N>``, so the
+five-seed spread of one CST stage is five commands with one
+``--start_from``, none overwriting another's checkpoints or results:
+
+    python -m cst_captioning_tpu_torch.tools.stage_chain --out_dir runs/c \\
+        --stages cst,eval --start_from runs/wxe --seed 1
 """
 
 from __future__ import annotations
@@ -133,12 +141,26 @@ def data_argv(data_dir: str, split: str,
     return out
 
 
+#: The training seed of the reference's recorded chain.
+DEFAULT_SEED = 123
+
+
+def seed_dir(out_dir: str, seed: int) -> str:
+    """The chain's directory for ``seed``: ``out_dir`` itself for the
+    reference chain's seed, ``out_dir/seed<N>`` for any other, so that
+    runs at several seeds (from one ``--start_from``) never share a
+    checkpoint, log or result file."""
+    return out_dir if seed == DEFAULT_SEED else os.path.join(
+        out_dir, f"seed{seed}")
+
+
 def stage_argv(out_dir: str, xe_patience: int = 25,
                cst_baseline: str = "scb-sample",
                cst_temperature: float = 1.0,
                cst_device_rewards: int = 1, use_bfloat16: int = 0,
                data_dir: Optional[str] = None,
-               start_from: Optional[str] = None) -> dict:
+               start_from: Optional[str] = None,
+               seed: int = DEFAULT_SEED) -> dict:
     if data_dir:
         data = data_argv(data_dir, "train") + data_argv(data_dir, "val")
     else:
@@ -149,7 +171,7 @@ def stage_argv(out_dir: str, xe_patience: int = 25,
     common = data + [
         "--batch_size", "32", "--seq_per_img", "20",
         "--rnn_size", "192", "--input_encoding_size", "192",
-        "--att_size", "192", "--max_length", "30", "--seed", "123",
+        "--att_size", "192", "--max_length", "30", "--seed", str(seed),
         "--decode_chunk", "8", "--log_every", "10",
         "--fast_val", "1", "--eval_metric", "CIDEr",
         "--pallas_attention", "1", "--decode_kernel", "fused",
@@ -196,10 +218,10 @@ class EventLog:
     def emit(self, event: str, **fields) -> None:
         if not self.path:
             return
+        rec = {"ts": time.time(), "event": event, **fields}
         try:
             with open(self.path, "a") as f:
-                f.write(json.dumps({"ts": time.time(), "event": event,
-                                    **fields}) + "\n")
+                f.write(json.dumps(rec) + "\n")
         except OSError:
             pass
 
@@ -392,7 +414,12 @@ def main(argv=None) -> int:
     p.add_argument("--max_wedge_wait_s", type=float, default=600.0,
                    help="how long a stage waits for a card that probes "
                         "wedged before the chain stops")
+    p.add_argument("--seed", type=int, default=DEFAULT_SEED,
+                   help="every train stage's --seed; a seed other than "
+                        f"the reference chain's {DEFAULT_SEED} runs into "
+                        "OUT_DIR/seed<N>")
     args = p.parse_args(argv)
+    args.out_dir = seed_dir(args.out_dir, args.seed)
     os.makedirs(args.out_dir, exist_ok=True)
     events = EventLog(os.path.join(args.out_dir, "chain_events.jsonl"))
     events.emit("chain_start", argv=list(sys.argv[1:] if argv is None
@@ -401,7 +428,7 @@ def main(argv=None) -> int:
     stages = stage_argv(args.out_dir, args.xe_max_patience,
                         args.cst_baseline, args.cst_temperature,
                         args.cst_device_rewards, args.use_bfloat16,
-                        args.data_dir, args.start_from)
+                        args.data_dir, args.start_from, args.seed)
     results = {}
     for name in args.stages.split(","):
         if name == "eval":

@@ -37,6 +37,9 @@ import sys
 import time
 
 HERE = os.path.abspath(__file__)
+#: ``resilience/exitcodes.py``'s failure code, spelled here: the package
+#: is imported from each ``--root`` only after the CUDA check.
+EXIT_FAILURE = 1
 BATCH, SEQ, MAX_LEN = 64, 20, 30
 
 
@@ -62,7 +65,8 @@ def one_root(args) -> dict:
     import torch
 
     if not torch.cuda.is_available():
-        raise SystemExit("train_steps: needs a CUDA device")
+        print("train_steps: needs a CUDA device", file=sys.stderr)
+        raise SystemExit(EXIT_FAILURE)
     from cst_captioning_tpu_torch import train
     from cst_captioning_tpu_torch.data.loader import CaptionLoader
     from cst_captioning_tpu_torch.ops import _cuda

@@ -236,6 +236,21 @@ class PhaseMarks:
                 for (_, ea), (b, eb) in zip(self.marks, self.marks[1:])}
 
 
+def host_record(metrics: Dict[str, Any], keys) -> Dict[str, float]:
+    """``float`` of each of ``keys`` that ``metrics`` holds, with one
+    device-to-host copy for all of its tensors (the reference's one
+    batched fetch per logged step), not one round trip per key."""
+    keys = [k for k in keys if k in metrics]
+    tens = [k for k in keys if isinstance(metrics[k], torch.Tensor)]
+    got: Dict[str, float] = {}
+    if tens:
+        dev = metrics[tens[0]].device
+        got = dict(zip(tens, torch.stack(
+            [metrics[k].detach().reshape(()).to(dev, torch.float64)
+             for k in tens]).tolist()))
+    return {k: got[k] if k in got else float(metrics[k]) for k in keys}
+
+
 def phase_ms(metrics: Dict[str, Any]) -> Dict[str, float]:
     """Per-phase milliseconds of a CST step's metrics (both paths)."""
     out: Dict[str, float] = {}
@@ -1003,8 +1018,8 @@ class Trainer:
                 self._check_finite(k, m)
             if not (opt.log_every and (k + 1) % opt.log_every == 0):
                 continue
-            rec = {key: float(m[key]) for key in TRAIN_RECORD_KEYS
-                   if key in m}
+            rec = host_record(m, TRAIN_RECORD_KEYS)
+            # cstlint-torch: disable=device-scalar-fetch -- the schedule evaluated on a CPU tensor of the host step index: no device value
             rec["lr"] = float(self.optimizer.lr(torch.tensor(float(k))))
             secs = time.perf_counter() - clock[0]
             clock[0] = time.perf_counter()
@@ -1041,6 +1056,7 @@ class Trainer:
         operation before this runs)."""
         for key in ("loss", "grad_norm"):
             if key in m:
+                # cstlint-torch: disable=device-scalar-fetch -- --debug_nans only (off by default): the flag's contract is a finite check of every step's loss and gradient norm, which needs their values
                 value = float(m[key])
                 if not np.isfinite(value):
                     raise FloatingPointError(

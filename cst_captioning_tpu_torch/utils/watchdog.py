@@ -58,7 +58,7 @@ class ProgressWatchdog:
         self._payload = payload
         self._last = time.monotonic()
         self._stop = threading.Event()
-        self._thread: Optional[threading.Thread] = None
+        self._thread: Optional[threading.Thread] = None  # cstlint-torch: owned_by=control
 
     def _armed(self) -> bool:
         return self.timeout_s > 0 or (

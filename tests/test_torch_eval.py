@@ -230,6 +230,28 @@ def test_eval_cli_serving_engine_parity(converted):
     _close(served["scores"], legacy["scores"])
 
 
+def test_eval_result_file_goes_through_atomic_json_write(converted,
+                                                       monkeypatch):
+    """``--result_file`` is written by
+    ``resilience.integrity.atomic_json_write`` (fsync'd temporary file,
+    rename, directory fsync), as the reference's ``eval.py`` writes it, and
+    nothing is left beside it."""
+    calls = []
+    real = port_eval.atomic_json_write
+
+    def spy(path, doc, **kw):
+        calls.append((path, kw))
+        real(path, doc, **kw)
+
+    monkeypatch.setattr(port_eval, "atomic_json_write", spy)
+    out = _eval(converted, "--decode_kernel", "fused")
+    assert calls == [(str(converted["root"] / "result.json"),
+                      {"indent": 2})]
+    assert out["predictions"] == converted["preds"]
+    assert not [p for p in converted["root"].iterdir()
+                if p.name.endswith(".tmp")]
+
+
 def test_serving_engine_parity_failure_raises(converted, monkeypatch):
     def garbled(*args, **kw):
         return [{"image_id": "val_video0", "caption": "not it"}]

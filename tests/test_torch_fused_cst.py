@@ -16,6 +16,7 @@ optimizers are held to optax on identical gradients in
 """
 
 import json
+import os
 
 import jax
 import jax.numpy as jnp
@@ -428,6 +429,44 @@ def test_stage_chain_picks_the_cst_reward_path():
     assert train.parse_args(stage_argv("out")["cst"]).use_bfloat16 == 0
     dirs = [a[a.index("--checkpoint_path") + 1] for a in (fused, host)]
     assert dirs[1] == dirs[0] + "_host"
+
+
+@pytest.mark.parametrize("seed", [123, 7])
+def test_stage_chain_seed_reaches_every_stage(seed, tmp_path, monkeypatch):
+    """``tools/stage_chain.py --seed``: every train stage's argv carries
+    it (default 123, the reference chain's), and a seed other than 123
+    runs the chain into ``OUT_DIR/seed<N>``, its stages chained there."""
+    import subprocess
+
+    from cst_captioning_tpu_torch.tools import stage_chain
+
+    for argv in stage_chain.stage_argv("out", seed=seed).values():
+        assert train.parse_args(argv).seed == seed
+    calls = []
+
+    def fake_run_stage(name, cmd, stage_dir, log_path, max_attempts,
+                       events=None, max_wedge_wait_s=600.0):
+        calls.append((name, cmd, stage_dir))
+        os.makedirs(stage_dir, exist_ok=True)
+        with open(os.path.join(stage_dir, "infos.json"), "w") as f:
+            f.write('{"history": [{"CIDEr": 0.5}]}')
+        return subprocess.CompletedProcess(cmd, 0, json.dumps({
+            "best_score": len(calls), "best_step": 1, "last_step": 1,
+            "checkpoint_path": stage_dir}) + "\n", "")
+
+    monkeypatch.setattr(stage_chain, "run_stage", fake_run_stage)
+    assert stage_chain.main(["--out_dir", str(tmp_path), "--stages",
+                             "xe,wxe,cst", "--seed", str(seed)]) == 0
+    root = str(tmp_path if seed == 123 else tmp_path / f"seed{seed}")
+    assert [name for name, _, _ in calls] == ["xe", "wxe", "cst"]
+    for name, cmd, stage_dir in calls:
+        assert cmd[cmd.index("--seed") + 1] == str(seed)
+        assert stage_dir == os.path.join(root, "checkpoints", name)
+    for name, prev in (("wxe", "xe"), ("cst", "wxe")):
+        cmd = dict((n, c) for n, c, _ in calls)[name]
+        assert cmd[cmd.index("--start_from") + 1] == os.path.join(
+            root, "checkpoints", prev)
+    assert os.path.exists(os.path.join(root, "chain_events.jsonl"))
 
 
 def test_fused_setup_refuses_a_video_without_references():

@@ -123,6 +123,53 @@ def test_dp_pipeline_equals_one_rank(one_rank):
     assert want["xe_losses"][-1] != want["xe_losses"][0]
 
 
+def test_two_ranks_reduce_exactly_the_sum_of_their_halves():
+    """The first XE update's gradient at 2 ranks is, bit for bit, the
+    float32 sum of the two half batches' gradients over the global mask
+    total, each computed here in one process; at 1 rank it is the whole
+    batch's.  The flat all-reduce and the global denominator reorder
+    nothing: what separates 2 ranks from 1 is the half-batch sums' own
+    rounding, which any split of the batch has (the reference's mesh
+    too), and which Adam magnifies where |g| is near its eps."""
+    from cst_captioning_tpu_torch.ops.losses import cross_entropy_loss
+
+    kw = dict(batch_size=B, xe_steps=1, drop_prob=0.0, grads=True)
+    one = dryrun.run_dp_pipeline(1, **kw)
+    two = dryrun.run_dp_pipeline(2, **kw)
+    cfg = {"vocab": dryrun.VOCAB, "hidden": dryrun.HIDDEN,
+           "feat_shapes": dryrun.FEAT_SHAPES}
+    S, L = dryrun.SEQ_PER_IMG, dryrun.MAX_LEN
+    rng = np.random.default_rng(0)
+    feats = [rng.standard_normal((B,) + tuple(s)).astype(np.float32)
+             for s in dryrun.FEAT_SHAPES]
+    labels = torch.from_numpy(
+        rng.integers(1, dryrun.VOCAB, (B * S, L)).astype(np.int32)).long()
+    total = sequence_mask(labels).sum().float()
+
+    def grads(rows, denominator):
+        model = dryrun.pipeline_model(cfg, "cpu", "reference", False, 0.0,
+                                      None)
+        vids = slice(rows.start // S, rows.stop // S)
+        logits = model([torch.from_numpy(f[vids]) for f in feats],
+                       labels[rows], S, train=True,
+                       generator=torch.Generator().manual_seed(1))
+        cross_entropy_loss(logits, labels[rows],
+                           torch.ones(rows.stop - rows.start),
+                           total=denominator).backward()
+        return {n: p.grad.numpy() for n, p in model.named_parameters()}
+
+    whole = grads(slice(0, B * S), None)
+    half = B * S // 2
+    halves = [grads(slice(r * half, (r + 1) * half),
+                    lambda t: total.to(t.dtype)) for r in (0, 1)]
+    for name in whole:
+        np.testing.assert_array_equal(one["grads"][0][name], whole[name],
+                                      err_msg=name)
+        np.testing.assert_array_equal(two["grads"][0][name],
+                                      halves[0][name] + halves[1][name],
+                                      err_msg=name)
+
+
 def test_one_rank_equals_the_reference_pipeline(monkeypatch):
     """The reference's pipeline at one device with dropout off (the two
     stacks draw dropout masks from different generators: the port's own

@@ -855,3 +855,51 @@ def test_cli_wedge_and_preempt_requeue_every_stream(tmp_path):
     doc = json.load(open(tmp_path / "c" / "supervisor_exit.json"))
     incs = {(i["replica"], i["rc"]) for i in doc["stats"]["incidents"]}
     assert incs == {(0, 124), (2, 75)}
+
+
+def test_serve_child_reader_outlives_a_silent_stretch(tmp_path):
+    """``ServeChild``'s socket keeps its connect timeout (30 s; 0.2 s
+    here).  A child that says nothing for longer (it waits, silent, while
+    the supervisor starts the others, on a loaded host longer than 30 s)
+    is still heard afterwards: a read that times out only means silence,
+    and the reader waits again.  Lines split across sends arrive whole;
+    the reader ends when the child's socket closes."""
+    import socket
+    import threading
+    import time
+
+    srv = socket.socket()
+    srv.bind(("127.0.0.1", 0))
+    srv.listen()
+    sock = socket.create_connection(srv.getsockname(), timeout=0.2)
+    conn, _ = srv.accept()
+    before = set(threading.enumerate())
+    child = port_supervisor.ServeChild(None, sock, str(tmp_path), 0,
+                                       str(tmp_path / "stderr.log"))
+    reader, = [t for t in threading.enumerate()
+               if t not in before and t.name == "sup-child-0"]
+
+    def collect(n, within=5.0):
+        got, end = [], time.monotonic() + within
+        while len(got) < n and time.monotonic() < end:
+            got += child.lines()
+            time.sleep(0.01)
+        return got
+
+    try:
+        time.sleep(0.7)                       # three timed-out reads
+        assert reader.is_alive()
+        conn.sendall(b'{"op": "health", "compiles": 3}\n{"id": 1, "fin')
+        time.sleep(0.3)
+        conn.sendall(b'al": true}\n')
+        got = collect(2)
+        assert [json.loads(ln) for ln in got] == [
+            {"op": "health", "compiles": 3}, {"id": 1, "final": True}]
+        assert all(ln.endswith("\n") for ln in got)
+        conn.close()
+        reader.join(timeout=5)
+        assert not reader.is_alive()
+    finally:
+        conn.close()
+        sock.close()
+        srv.close()

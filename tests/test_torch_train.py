@@ -179,6 +179,40 @@ def test_three_stage_chain_through_the_cli(tmp_path, capsys):
     assert warm.loader.consensus_weights is not None
 
 
+def test_train_record_fetches_its_tensors_at_once(monkeypatch):
+    """A train record's metrics are fetched with one device-to-host copy
+    for all of the step's tensors, not a ``float()`` round trip per key
+    (the reference's one batched fetch per logged step), and equal the
+    per-key ``float()`` values bit for bit; host values pass through."""
+    import numpy as np
+
+    from cst_captioning_tpu_torch.training.trainer import (
+        TRAIN_RECORD_KEYS, host_record)
+
+    m = {"loss": torch.tensor(2.718281828), "grad_norm": torch.tensor(1 / 3),
+         "sample_len": torch.tensor(7.25, dtype=torch.bfloat16),
+         "reward": 0.1, "advantage": np.float32(-0.3),
+         "phase_marks": (), "bad_step": torch.tensor(0.0)}
+    want = {k: float(m[k]) for k in TRAIN_RECORD_KEYS if k in m}
+    copies = []
+    tolist = torch.Tensor.tolist
+
+    def counted(self):
+        copies.append(self.shape)
+        return tolist(self)
+
+    def no_float(self):
+        raise AssertionError("a per-key float() of a tensor")
+
+    monkeypatch.setattr(torch.Tensor, "tolist", counted)
+    monkeypatch.setattr(torch.Tensor, "__float__", no_float)
+    got = host_record(m, TRAIN_RECORD_KEYS)
+    monkeypatch.undo()
+    assert got == want and list(got) == list(want)
+    assert all(type(v) is float for v in got.values())
+    assert copies == [torch.Size([3])]
+
+
 def test_cli_early_stop_and_scb_baselines(tmp_path, capsys):
     """The SCB baselines (scb-gt with beam-2 validation), and the early
     stop once an epoch does not improve on the best."""
