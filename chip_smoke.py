@@ -673,6 +673,7 @@ def check_k2(b: int, attn, gen, flush) -> dict:
             "plain_ms": p["graph_ms"], "bound_ms": bound, "bound_by": by,
             "library_ms": lib["graph_ms"],
             "library_call": "torch.addmm (gate product only)",
+            "gate_kernel": k2.gate_geometry(b, E, H)["kernel"],
             "kernel": k, "plain": p, "library": lib}
 
 
@@ -683,8 +684,9 @@ def report_check(name: str, b: int, m: dict, label: str = "") -> None:
                     ("backward_ms", "backward_graph_ms") if key in m)
     grad = (f" grad_rel_err={m['grad_rel_err']:.3e}"
             if "grad_rel_err" in m else "")
+    gate = f" gate={m['gate_kernel']}" if "gate_kernel" in m else ""
     print(f"kernel {name} B={b}{label}: max_abs_err={m['max_abs_err']:.3e}"
-          f"{grad} ms={m['ms']:.6f} ({m['ms_is']}) "
+          f"{grad}{gate} ms={m['ms']:.6f} ({m['ms_is']}) "
           f"plain_ms={m['plain_ms']:.6f} bound_ms={m['bound_ms']:.6f} "
           f"({m['bound_by']}) library_ms={m['library_ms']}{extra}")
     for part in ("kernel", "plain", "library"):
@@ -713,13 +715,15 @@ def kernel_checks():
 
     for elem, dtype in ((4, "float32"), (2, "bfloat16")):
         clusters = ctypes.c_int(0)
+        gate = k2.gate_geometry(8, E, H, elem)
         rc = _cuda.load("decode_cell", "decode_cell_gate_max_clusters")(
-            E, H, elem, ctypes.byref(clusters))
+            E, H, elem, gate["variant"], ctypes.byref(clusters))
         _cuda.check(rc, "decode_cell_gate_max_clusters")
-        tiles = k2.gate_geometry(8, E, H, elem)["column_tiles"]
-        print(f"K2 gate stage ({dtype}): the card holds {clusters.value} "
-              f"clusters of {k2.GATE_CLUSTER} blocks at once; the serving "
-              f"width has {tiles} (one wave: {clusters.value >= tiles})")
+        tiles = gate["column_tiles"]
+        print(f"K2 gate stage ({dtype}, {gate['kernel']}): the card holds "
+              f"{clusters.value} clusters of {gate['cluster']} blocks at "
+              f"once; the serving width has {tiles} (one wave: "
+              f"{clusters.value >= tiles})")
         if clusters.value < tiles:
             fail(f"K2's {dtype} gate clusters do not fit in one wave")
 
@@ -928,7 +932,8 @@ def timed_steps(trainer, n: int, check) -> list:
     iteration completed).  -> [(seconds, completed, launches)]."""
     import torch
 
-    from cst_captioning_tpu_torch.ops import (launch_counts,
+    from cst_captioning_tpu_torch.ops import (gate_launch_counts,
+                                              launch_counts,
                                               launch_counts_by_dtype,
                                               reset_launch_counts)
 
@@ -939,7 +944,8 @@ def timed_steps(trainer, n: int, check) -> list:
         done = trainer.iteration()
         torch.cuda.synchronize()
         sec = time.perf_counter() - t0
-        launches = {**launch_counts(), **launch_counts_by_dtype()}
+        launches = {**launch_counts(), **launch_counts_by_dtype(),
+                    **gate_launch_counts()}
         check(done, launches)
         out.append((sec, done, launches))
     return out
@@ -1092,6 +1098,29 @@ def smoke_trainer(opt, splits):
     return Trainer(opt, splits, device_tables=REWARD_TABLES)
 
 
+def check_rollout_gate(name: str, launches: dict, steps: float,
+                       elem: int) -> None:
+    """The rollout's K2 gate launches in a fused CST step all went to the
+    kernel ``gate_geometry`` picks for ``ROLLOUT_ROWS`` rows in storage of
+    ``elem`` bytes: one a rollout step."""
+    from cst_captioning_tpu_torch.ops import decode_cell_kernel as k2
+
+    gate = k2.gate_geometry(ROLLOUT_ROWS, E, H, elem)["kernel"]
+    gates = {g: launches.get(f"fused_decode_cell/{g}", 0)
+             for g in k2.GATE_KERNELS}
+    if gates[gate] != steps or sum(gates.values()) != steps:
+        fail(f"{name}: K2's gate launches {gates} in a rollout of {steps} "
+             f"steps at {ROLLOUT_ROWS} rows; {gate} once a step expected")
+
+
+def gate_totals(launches: dict) -> dict:
+    """``{gate kernel: launches}`` out of a phase's summed counters."""
+    from cst_captioning_tpu_torch.ops import decode_cell_kernel as k2
+
+    return {g: launches.get(f"fused_decode_cell/{g}", 0)
+            for g in k2.GATE_KERNELS}
+
+
 def train_phase(splits):
     """Phase 7: XE -> WXE -> CST at full width through the train CLI's
     parser and ``Trainer``; CST on the fused path (the default), then on
@@ -1108,8 +1137,11 @@ def train_phase(splits):
     from cst_captioning_tpu_torch.training import checkpoint
 
     shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+    from cst_captioning_tpu_torch.ops import decode_cell_kernel as k2
+
     rows = TRAIN_BATCH * TRAIN_SEQ
-    total = {"fused_additive_attention": 0, "fused_decode_cell": 0}
+    total = {"fused_additive_attention": 0, "fused_decode_cell": 0,
+             **{f"fused_decode_cell/{g}": 0 for g in k2.GATE_KERNELS}}
 
     def teacher_forced(done, launches):
         if launches["fused_additive_attention"] != MAX_LEN * len(done):
@@ -1185,6 +1217,8 @@ def train_phase(splits):
         if launches["fused_decode_cell"] != 2 * float(m["rollout_steps"]):
             fail(f"K2 launched {launches['fused_decode_cell']} times in a "
                  f"rollout of {float(m['rollout_steps'])} steps (2 a step)")
+        check_rollout_gate("train CST fused", launches,
+                           float(m["rollout_steps"]), 4)
         if not np.isfinite(float(m["reward"])):
             fail(f"CST reward not finite: {float(m['reward'])}")
 
@@ -1193,6 +1227,8 @@ def train_phase(splits):
     cst_steps = timed_steps(cst, 3, fused_step)
     add(cst_steps)
     fused_ms = report_stage("CST fused", cst_steps, rows)
+    print(f"train CST fused: K2's gate launches in the 4 rollouts at "
+          f"{ROLLOUT_ROWS} rows, by kernel: {gate_totals(total)}")
     save_best(cst, "cst")                   # phase 9 evaluates it
     changed = sum(not torch.equal(a, p.detach())
                   for a, p in zip(before, cst.model.parameters()))
@@ -1216,7 +1252,8 @@ def train_phase(splits):
               f"{k} {ms:.3f} {n:.0f}" for k, ms, n in prof["top"]))
     nan_guard_check(cst)
 
-    from cst_captioning_tpu_torch.ops import (launch_counts,
+    from cst_captioning_tpu_torch.ops import (gate_launch_counts,
+                                              launch_counts,
                                               launch_counts_by_dtype,
                                               reset_launch_counts)
 
@@ -1224,8 +1261,11 @@ def train_phase(splits):
     t0 = time.perf_counter()
     scores = cst.validate()
     torch.cuda.synchronize()
-    launches = {**launch_counts(), **launch_counts_by_dtype()}
-    total["fused_decode_cell"] += launches["fused_decode_cell"]
+    launches = {**launch_counts(), **launch_counts_by_dtype(),
+                **gate_launch_counts()}
+    for key in total:
+        if key.startswith("fused_decode_cell"):
+            total[key] += launches[key]
     print(f"train validation: {splits[1].num_videos} videos, greedy through "
           f"K2 at B={TRAIN_BATCH}, {time.perf_counter() - t0:.3f} s, "
           f"CIDEr-D {scores['CIDEr']:.6f}; launches {launches}")
@@ -1268,7 +1308,8 @@ def train_phase(splits):
     drained = host.drain()
     torch.cuda.synchronize()
     drain_s = time.perf_counter() - t0
-    launches = {**launch_counts(), **launch_counts_by_dtype()}
+    launches = {**launch_counts(), **launch_counts_by_dtype(),
+                **gate_launch_counts()}
     teacher_forced(drained, launches)
     add([(drain_s, drained, launches)])
     ms = phase_medians(host_steps)
@@ -1325,9 +1366,10 @@ def bf16_errors(got, want, ulps: int = 1):
             and all(e <= t for e, t in errs), differ)
 
 
-def bf16_batch_invariant(fn, args, per_row: int) -> bool:
-    """A row's outputs have the same bits in a batch, alone, and at
-    another index of the batch."""
+def bf16_batch_invariant(fn, args, per_row: int, sizes=()) -> bool:
+    """A row's outputs have the same bits in a batch, alone, at another
+    index of the batch, and inside contiguous sub-batches of each of
+    ``sizes`` rows (K2: each size may take another gate kernel)."""
     import torch
 
     b = args[0].shape[0]
@@ -1342,7 +1384,17 @@ def bf16_batch_invariant(fn, args, per_row: int) -> bool:
     for r in (0, b // 3, b - 1):
         same &= all(torch.equal(o[r:r + 1], a)
                     for o, a in zip(full, fn(*rows(slice(r, r + 1)))))
+    for n in sizes:
+        for lo in (0, (b - n) // 2, b - n):
+            same &= all(torch.equal(o[lo:lo + n], a) for o, a in
+                        zip(full, fn(*rows(slice(lo, lo + n)))))
     return same
+
+
+#: Sub-batches a 1344-row K2 batch is held against bit for bit: the
+#: serving buckets and the beam-5 batches (the weight stream) and the
+#: beam-5 eval's 320 rows (the large-batch tiles).
+K2_INVARIANCE_SIZES = (8, 40, 320)
 
 
 def check_k1_bf16(b: int, attn, gen, flush, backward: bool = False) -> dict:
@@ -1419,9 +1471,12 @@ def check_k2_bf16(b: int, attn, gen, flush) -> dict:
             "bound_ms": bound, "bound_by": by,
             "library_ms": lib["graph_ms"],
             "library_call": "torch.addmm (bfloat16 gate product only)",
+            "gate_kernel": k2.gate_geometry(b, E, H, 2)["kernel"],
             "kernel": k, "plain": p, "library": lib,
             "batch_invariant": (bf16_batch_invariant(
-                k2.fused_decode_cell, args, 6) if b == 40 else None)}
+                k2.fused_decode_cell, args, 6,
+                K2_INVARIANCE_SIZES if b == ROLLOUT_ROWS else ())
+                if b in (40, ROLLOUT_ROWS) else None)}
 
 
 def report_bf16(name: str, b: int, m: dict, label: str = "") -> None:
@@ -1429,7 +1484,8 @@ def report_bf16(name: str, b: int, m: dict, label: str = "") -> None:
     extra = "".join(f" {key}={m[key]}" for key in
                     ("grad_bitwise", "batch_invariant", "backward_ms",
                      "backward_graph_ms") if m.get(key) is not None)
-    print(f"kernel {name} bfloat16 B={b}{label}: "
+    gate = f" gate={m['gate_kernel']}" if "gate_kernel" in m else ""
+    print(f"kernel {name} bfloat16 B={b}{label}:{gate} "
           f"max_abs_err={m['max_abs_err']:.3e}"
           f" (tolerance, in bfloat16 ulps of the output's magnitude: "
           f"{m['tol']:.3e}; outputs that differ: {m['differ']:.3e}) "
@@ -1451,7 +1507,9 @@ def report_bf16(name: str, b: int, m: dict, label: str = "") -> None:
 def bf16_kernel_checks() -> dict:
     """Phase 8a: K1 at B = 1, 8, 40, 1280 (its gradients at 1280) and K2 at
     B = 1, 8, 40, 1344 in bfloat16 storage against their plain versions;
-    both bitwise batch-invariant at B = 40.  -> {kernel: {batch: dict}}."""
+    both bitwise batch-invariant at B = 40, K2 also at 1344 (its rows
+    alone and in sub-batches of 8, 40 and 320: every gate kernel).  ->
+    {kernel: {batch: dict}}."""
     import torch
 
     from cst_captioning_tpu_torch.ops import attention_kernel as k1
@@ -1571,6 +1629,8 @@ def bf16_train_phase(splits) -> dict:
                 2 * float(m["rollout_steps"]):
             fail(f"bfloat16 CST: K2 launched {launches} in a rollout of "
                  f"{float(m['rollout_steps'])} steps (2 bfloat16 a step)")
+        check_rollout_gate("train CST fused bf16", launches,
+                           float(m["rollout_steps"]), 2)
         if not np.isfinite(float(m["reward"])):
             fail(f"bfloat16 CST reward not finite: {float(m['reward'])}")
 
@@ -1579,6 +1639,8 @@ def bf16_train_phase(splits) -> dict:
     cst_steps = timed_steps(cst, 3, fused_step)
     add(cst_steps)
     cst_ms = report_stage("CST fused bf16", cst_steps, rows)
+    print(f"train CST fused bf16: K2's gate launches in phase 8's 4 "
+          f"rollouts at {ROLLOUT_ROWS} rows, by kernel: {gate_totals(total)}")
     metrics = [m for _, done, _ in cst_steps for _, m in done]
     changed = sum(not torch.equal(a, p.detach())
                   for a, p in zip(before, cst.model.parameters()))
@@ -2424,16 +2486,16 @@ REST_CACHE_VIDEOS, REST_CACHE_REQUESTS = 8, 32
 
 
 def k2_rerun_determinism() -> None:
-    """Phase 13a: the same K2 call twice at B = 1, 8, 40, in float32 and
-    bfloat16 storage, bitwise equal: what the ladder's re-runs rely on.
-    Comparison launches: not counted."""
+    """Phase 13a: the same K2 call twice at B = 1, 8, 40 and 1344, in
+    float32 and bfloat16 storage, bitwise equal: what the ladder's re-runs
+    rely on.  Comparison launches: not counted."""
     import torch
 
     from cst_captioning_tpu_torch.ops import decode_cell_kernel as k2
 
     gen = torch.Generator().manual_seed(4321)
     for dtype in ("float32", "bfloat16"):
-        for b in (1, 8, 40):
+        for b in (1, 8, 40, ROLLOUT_ROWS):
             q, pm, mem, v = attention_inputs(b, gen)
             x = torch.randn(b, E, generator=gen).cuda()
             c = torch.randn(b, H, generator=gen).cuda()
@@ -2902,7 +2964,10 @@ def k2_f32_batch_invariance() -> None:
     """Phase 14a: float32 K2 gives a row the same bits alone (B = 1), in a
     batch of 4 and of 8, and moved to another index.  A re-queued request
     decodes again in another slot, maybe in another bucket, and its
-    caption must not move.  Comparison launches: not counted."""
+    caption must not move.  Then the rollout's 1344 rows (the register
+    tiles) against each row alone, moved, and sub-batches of 8, 40 (the
+    weight stream) and 320 (the tiles).  Comparison launches: not
+    counted."""
     import torch
 
     from cst_captioning_tpu_torch.ops import decode_cell_kernel as k2
@@ -2926,11 +2991,20 @@ def k2_f32_batch_invariance() -> None:
         for r in range(b)
         for f, g in zip(full, k2.fused_decode_cell(
             *(a[r:r + 1].contiguous() for a in args[:6]), v, wg, bias)))
+    b = ROLLOUT_ROWS
+    q, pm, mem, v = attention_inputs(b, gen)
+    big = (torch.randn(b, E, generator=gen).cuda(),
+           torch.randn(b, H, generator=gen).cuda(),
+           torch.tanh(torch.randn(b, H, generator=gen)).cuda(), q, pm, mem,
+           v, wg, bias)
+    rollout = bf16_batch_invariant(k2.fused_decode_cell, big, 6,
+                                   K2_INVARIANCE_SIZES)
     torch.cuda.synchronize()
     print(f"fleet K2 float32 batch invariance: B=1 (each of 8 rows alone) "
           f"{alone}, B=4 {same4}, B=8 moved to another index and alone "
-          f"{moved_alone}")
-    if not (alone and same4 and moved_alone):
+          f"{moved_alone}; B={b} moved, rows alone and in batches of "
+          f"{K2_INVARIANCE_SIZES} {rollout}")
+    if not (alone and same4 and moved_alone and rollout):
         fail("phase 14: float32 K2 is not bitwise batch-invariant")
 
 
@@ -4265,10 +4339,10 @@ TELEMETRY_ROOT = os.path.join(HERE, "checkpoints", "chip_smoke_telemetry")
 TELEMETRY_BUDGET_S = 90.0
 #: The profiler window, loop steps [2, 4) of the epoch's 6.
 PROFILE_WINDOW = (2, 4)
-#: The kernels' CUDA symbols as the profiler's trace names them: K1 is
-#: ``attention_kernel``; K2 launches the same attention kernel and then
-#: ``gate_kernel``.
-K1_SYMBOL, K2_GATE_SYMBOL = "attention_kernel", "gate_kernel"
+#: K1's CUDA symbol as the profiler's trace names it; K2 launches the same
+#: attention kernel and then one of its gate kernels
+#: (``decode_cell_kernel.GATE_KERNELS``).
+K1_SYMBOL = "attention_kernel"
 TELEMETRY_SPANS = {"xe": {"data_wait", "compute", "ckpt", "ckpt_commit",
                           "prefetch_assemble"},
                    "cst": {"data_wait", "compute", "ckpt", "ckpt_commit"}}
@@ -4329,6 +4403,7 @@ def trace_kernels(path: str) -> tuple:
     those whose symbol names K1 and K2's gate stage; ``profile_top``'s
     summary of the same events, every name listed, with the seconds the
     read and the summary took under ``seconds``)."""
+    from cst_captioning_tpu_torch.ops.decode_cell_kernel import GATE_KERNELS
     from cst_captioning_tpu_torch.tools.profile_top import summarize
 
     t0 = time.perf_counter()
@@ -4341,7 +4416,9 @@ def trace_kernels(path: str) -> tuple:
     names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
     return {"all": len(names),
             "attention": sum(K1_SYMBOL in n for n in names),
-            "gate": sum(K2_GATE_SYMBOL in n for n in names)}, top
+            "gate": sum(any(g in n for g in GATE_KERNELS) for n in names),
+            "gates": {g: sum(g in n for n in names)
+                      for g in GATE_KERNELS}}, top
 
 
 def span_names(trace_dir: str) -> set:
@@ -4463,6 +4540,7 @@ def telemetry_phase() -> dict:
     from cst_captioning_tpu_torch import train
     from cst_captioning_tpu_torch.ops import (launch_counts_by_dtype,
                                               reset_launch_counts)
+    from cst_captioning_tpu_torch.ops.decode_cell_kernel import GATE_KERNELS
     from cst_captioning_tpu_torch.tools.stage_chain import probe_device
     from cst_captioning_tpu_torch.training.trainer import build_splits
 
@@ -4623,18 +4701,20 @@ def telemetry_phase() -> dict:
                  f"{k1} K2 {k2}, the trace's kernels {kernels}")
         print(f"telemetry {name}: profiler window {steps}: the trace names "
               f"{K1_SYMBOL} {kernels['attention']} times and "
-              f"{K2_GATE_SYMBOL} {kernels['gate']} ({kernels['all']} kernel "
+              f"K2's gate kernels {kernels['gate']} {kernels['gates']} "
+              f"({kernels['all']} kernel "
               f"events); the wrappers counted K1 {k1} ({MAX_LEN} a step) "
               f"and K2 {k2} (2 a rollout step: {k2 // 2} executed)")
         named = {sym: sum(r["count"] for r in top["kernels"]
                           if sym in r["name"])
-                 for sym in (K1_SYMBOL, K2_GATE_SYMBOL)}
+                 for sym in (K1_SYMBOL, *GATE_KERNELS)}
+        named_gates = {g: named[g] for g in GATE_KERNELS}
         span = top["span_us"]
         print(f"telemetry {name} profile_top [{card_line()}]: window "
               f"{span / 1e3:.3f} ms, device busy "
               f"{top['device_busy_us'] / 1e3:.3f} ms (share "
               f"{top['device_busy_share']:.4f}); {K1_SYMBOL} "
-              f"{named[K1_SYMBOL]}, {K2_GATE_SYMBOL} {named[K2_GATE_SYMBOL]} "
+              f"{named[K1_SYMBOL]}, gate kernels {named_gates} "
               f"of {top['distinct_kernels']} kernel names (trace "
               f"{top['seconds']['trace_mb']:.1f} MiB read in "
               f"{top['seconds']['read']:.2f} s, summarised in "
@@ -4644,8 +4724,8 @@ def telemetry_phase() -> dict:
                              "mean_us": round(r["mean_us"], 3),
                              "share": round(r["total_us"] / span, 4)}
                             for r in top["kernels"][:10]]))
-        if (named[K1_SYMBOL], named[K2_GATE_SYMBOL]) != (
-                kernels["attention"], kernels["gate"]) \
+        if (named[K1_SYMBOL], named_gates) != (
+                kernels["attention"], kernels["gates"]) \
                 or sum(r["count"] for r in top["kernels"]) != kernels["all"]:
             fail(f"phase 17 {name}: profile_top counts {named} "
                  f"({sum(r['count'] for r in top['kernels'])} kernel "
@@ -5360,14 +5440,21 @@ def main() -> int:
                "decode_cell.cu",
                "cst_captioning_tpu/ops/pallas_decode_cell.py:139"),
     }
+    # K2's gate launches by gate kernel, from phase 7 (float32: training,
+    # its rollouts and validation) and phase 8 (bfloat16 training).
+    gates = {"float32": ("phase 7", gate_totals(t_launch)),
+             "bfloat16": ("phase 8", gate_totals(bt_launch))}
     kernels = []
     for (key, dtype), n in launches.items():
         name, source, replaces = meta[key]
         res = measured if dtype == "float32" else bf16_measured
         res[key].update(v_measured[dtype][key])
         m = res[key][8]
+        extra = ({"gate_launches": gates[dtype][1],
+                  "gate_launches_from": gates[dtype][0]}
+                 if key == "K2" else {})
         kernels.append({
-            "name": name if dtype == "float32" else f"{name}_bf16",
+            **extra, "name": name if dtype == "float32" else f"{name}_bf16",
             "route": "cuda", "source": source, "replaces": replaces,
             "storage": dtype, "launches": n,
             "max_abs_err": max(res[key][b]["max_abs_err"] for b in res[key]),

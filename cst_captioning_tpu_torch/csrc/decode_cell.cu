@@ -9,287 +9,255 @@
 //   c'       = sigmoid(f) * c + sigmoid(i) * tanh(g)             [stage c]
 //   h'       = sigmoid(o) * tanh(c')
 //
-// What bounds it on an H100: device-memory bytes.  The gate weights are
-// (E + 2H) x 4H float32 — 12.6 MB at E = H = 512 — and every step reads
-// all of them for at most 40 rows (2 flops per weight per row, far below
-// the ~20 flops/byte float32 balance point): ~3.8 us at 3.35 TB/s.  The
-// weights fit in the 50 MB L2 cache, so back-to-back steps can run faster
-// than that HBM bound.
+// Two launches: (a) attention_kernel (attention.cuh), a cluster of 4
+// blocks per row writing only ctx (B, H) to a scratch buffer, and (b) one
+// gate kernel, started early by programmatic dependent launch: it reads
+// the h and x rows of K while the attention may still run and waits
+// (griddepcontrol.wait) only before it reads ctx.  A gate kernel owns
+// tiles of batch rows x U hidden units x all four gates (w's columns
+// g * H + j0 .. + U for each gate g: four strips), streams K through
+// shared memory in tiles of 32 rows with 16-byte cp.async copies and
+// finishes the LSTM update of its units itself, so only c' and h' reach
+// device memory.
 //
-// Design.  The TPU kernel kept both weight matrices in on-chip memory per
-// batch block; a Hopper block has 227 KB of shared memory, so the cell is
-// two launches:
-//   (a) attention_kernel (attention.cuh): a cluster of 4 blocks per row,
-//       writing only ctx (B, H) to a scratch buffer.  It lets the gate
-//       launch start early (programmatic dependent launch).
-//   (b) gate_kernel: a weight stream over all SMs.  A column tile is 8
-//       hidden units x 4 gates = 32 output columns, so every weight row a
-//       block reads is four whole 32-byte sectors.  Each of the H / 8
-//       tiles is one cluster of kGateCluster = 2 blocks that split K: rank
-//       r takes the r-th half of each of the x, h and ctx segments of K
-//       (768 rows at E = H = 512).  At block start every lane issues
-//       16-byte cp.async copies of all the weights it will read — 96 KB a
-//       block, 12.6 MB across the 128 blocks, read once per step whatever
-//       B is — from w as it lies, in three groups, one per segment (x, h,
-//       ctx).  Warps run the x and h rows as they land, and wait on the
-//       attention launch (griddepcontrol.wait) only before they read ctx.
-//       Rows of the batch go through in groups of kGateRows with the
-//       weights already in shared memory, the next group's inputs arriving
-//       (cp.async) while the current one runs.  A warp's lanes take four
-//       rows of K at a time (a quarter-warp per gate, 4 rows x 2 lanes of 4
-//       units); their sums meet by shuffles, the warps' in shared memory
-//       (added in warp order), and the pair's through distributed shared
-//       memory: each block writes the sums of the units its peer owns into
-//       the peer's shared memory, one cluster barrier per kChunkRows rows,
-//       and rank r adds the two blocks' sums of its 4 units in rank order,
-//       adds the bias and applies the flax OptimizedLSTMCell update.  Only
-//       c' and h' reach device memory.  Two-block clusters are what keeps
-//       every tile in one wave: a cluster takes two SMs (one TPC), and the
-//       card holds all 64, where it holds only 15 of 16 eight-block
-//       clusters (PERF.md).  (TMA boxes of the same slice were slower:
-//       a tile's rows are 32 bytes wide, PERF.md.)
-// Every output sums its K products in one fixed order (per lane: its x
-// rows, h rows, ctx rows ascending; then the four lanes of a column by a
-// shuffle butterfly; then warps; then ranks), so a row's result does not
-// depend on B or on the rows it shares a group with.  Tensor cores stay
-// out: the float32 contract forbids TF32.
+// What bounds it on an H100 depends on B.  The gate weights are (E + 2H) x
+// 4H: 12.6 MB in float32, 6.3 MB in bfloat16 at E = H = 512, so a serving
+// step (B <= 40) is bound by reading them (~3.8 / ~1.9 us at 3.35 TB/s;
+// back-to-back steps find them in the 50 MB L2, whose delivery to the SMs
+// is the practical limit).  The CST rollout (B = 1344) does 8.5 GFLOP a
+// step: operations bound, 126 us on the CUDA cores in float32, 8.5 us on
+// the tensor cores in bfloat16.  The wrapper's gate_geometry picks, for
+// (B, E, H, storage):
 //
-// bfloat16 storage (the reference kernel under --use_bfloat16): one
-// template, storage type S.  x, c, h, the attention operands, W and b are
-// bfloat16 (v float32), the weight slice is 48 KB a block (6.3 MB in all)
-// and a 16-byte copy carries 8 values: one copy is a whole 8-unit row of
-// a gate plane, issued by the even lane of the pair that reads it (a
-// __syncwarp makes it visible to the odd one), and each share of a K
-// segment is a multiple of 8 rows (E, H multiples of 16).  The lanes read
-// 4 bfloat16 values at a time and sum in float32 in the float32 kernel's
-// order, but keep TWO sums, the h side and the input side (x, ctx): the
-// reference rounds each product to bfloat16 on its own.  The update then
-// rounds where the reference's ops round: each product, + b, gh + gi,
-// each activation (the sigmoid as XLA's 1 / (1 + exp(-x)), three
-// roundings), f*c, i*g, c', tanh(c'), h'.  The float32 instantiation is
-// the float32 kernel op for op.  Its bound: 6.3 MB of weights, ~2 us at
-// 3.35 TB/s for B <= 40; at the rollout's 1344 rows the bfloat16 product
-// belongs on the tensor cores, which this CUDA-core loop leaves idle
-// (PERF.md: 1.2 ms there, ROADMAP Queue 2).
+//   gate_kernel<S> (float32 and bfloat16, B <= 128): the weight stream.  A
+//     cluster of 2 blocks (bfloat16: 4) covers 8 units (16) x 8 rows (16,
+//     an m16 tile), so 128 blocks read every weight once a step in 32-byte
+//     gate strips.  Rank r computes chunks r, r + 2, ... (r, r + 4) of the
+//     summation tree (below), a group of 64 threads a chunk with 3 (4) of
+//     its tiles in flight (float32: a thread per column and 4 rows, fmaf
+//     chains; bfloat16: mma.sync, a warp per 8 units), and writes each
+//     chunk sum through distributed shared memory to the rank that
+//     finishes that unit (4 units a rank).  After one cluster barrier (the
+//     bias and the cell state loaded while it runs) every rank adds its
+//     outputs' 8 chunk sums in order and updates.
+//   gate_tile_kernel<Rows> (float32, B > 128): 32 (B <= 640) or 64 rows x
+//     32 units (128 columns) a block of 128 or 256 threads, each a
+//     register tile of 4 rows x 2 units x 4
+//     gates (rows, not K, across the lanes: an input value loaded from
+//     shared memory feeds 8 products, a weight value 4), four tiles in
+//     flight.  No TF32: the float32 contract forbids it.
+//   gate_mma_kernel (bfloat16, B > 128): the tensor cores, mma.sync
+//     m16n8k16 bf16 -> f32 fed by ldmatrix; 128 rows x 16 units a block of
+//     8 warps, a warp 32 rows x 8 units x 4 gates (one n8 tile a gate), so
+//     each thread ends with all four gates of its outputs in registers;
+//     three tiles in flight.  The h side's running sums wait in shared
+//     memory while the input side's stay in registers.
+//
+// One summation tree for every B.  K's tiles of kChunk = 32 rows (E and H
+// multiples of 32) go in one order: the h rows, the x rows, the ctx rows.
+// float32 sums them as one side of nt tiles; bfloat16 as two, the h side
+// (nh tiles) and the input side (x then ctx), each rounded to bfloat16 on
+// its own as the reference rounds them.  A side of n tiles is cut into c
+// contiguous chunks (float32: c = 8; bfloat16: the h side gets round(8 nh
+// / nt) of the 8, the input side the rest): chunk j holds tiles [n j / c,
+// n (j + 1) / c).  A chunk's sum starts from zero and runs over its tiles
+// in order: float32 an fmaf chain over the rows, bfloat16 mma.sync over
+// the 16-row steps (a tensor-core product's row depends only on that
+// row's operands).  A side's sum adds its non-empty chunks' sums in chunk
+// order from zero with __fadd_rn.  Every kernel runs exactly these
+// operations: the tile kernels over the tiles in order, adding a chunk's
+// sums where it ends, the stream a chunk a group.  Nothing depends on B,
+// on a row's index or on the rows it shares a tile with (rows past B are
+// zero-filled and never stored), so a row's outputs have the same bits in
+// every batch, in every kernel the wrapper may pick for it.
+//
+// The update rounds where the reference's ops round: float32 with the
+// products and adds pinned (fmaf, __fmul_rn); bfloat16 at each side's sum,
+// + b, gh + gi, each activation (the sigmoid as XLA's 1 / (1 + exp(-x)),
+// three roundings), f*c, i*g, c', tanh(c'), h'.
 #include "attention.cuh"
 
-constexpr int kGateCluster = 2;                  // K slices = blocks a tile
-constexpr int kGateUnits = 8;                    // hidden units a tile
-constexpr int kGateCols = 4 * kGateUnits;        // 32: i | f | g | o
-constexpr int kGateSub = 4;                      // rows of K a warp step
-constexpr int kGateWarps = 8;
-constexpr int kGateThreads = 32 * kGateWarps;
-constexpr int kGateRows = 8;                     // batch rows a group
-constexpr int kChunkRows = 64;                   // batch rows a pair exchange
-constexpr int kUnitsPerRank = kGateUnits / kGateCluster;  // 4
-constexpr int kRankCols = 4 * kUnitsPerRank;     // 16: a rank's columns
+constexpr int kChunk = 32;            // rows of K a tile
+constexpr int kTreeChunks = 8;        // chunks of the summation tree
+// gate_kernel<S>: the weight stream.  A cluster of blocks a column tile
+// (hidden units), a group of kStreamGroup threads a chunk of the tree;
+// float32, then bfloat16.
+constexpr int kStreamGroup = 64;
+constexpr int kStreamUnitsF32 = 8;    // a gate strip of a row: 32 bytes
+constexpr int kStreamClusterF32 = 2;
+constexpr int kStreamRowsF32 = 8;
+constexpr int kStreamSlotsF32 = 3;    // tiles in flight a group
+constexpr int kStreamUnitsBf16 = 16;  // 32 bytes
+constexpr int kStreamClusterBf16 = 4;
+constexpr int kStreamRowsBf16 = 16;   // an m16 tile
+constexpr int kStreamSlotsBf16 = 4;
+// gate_tile_kernel<Rows> (float32, large B): 64 rows a block, or 32 for
+// middling B (more blocks to fill the card).
+constexpr int kTileRows = 64;
+constexpr int kTileRowsMid = 32;
+constexpr int kTileUnits = 32;
+constexpr int kTileStages = 4;        // tiles in flight (64 rows)
+constexpr int kTileStagesMid = 2;     // (32 rows: four blocks an SM)
+constexpr int kTileMinBlocks = 2;     // blocks an SM the registers allow
+constexpr int kTilePitch = 36;        // floats a row of a tile's inputs
+// gate_mma_kernel (bfloat16, large B): warps over rows and over units, m16
+// tiles a warp, tiles in flight.
+constexpr int kMmaPad = 8;            // bf16 a shared-memory row is padded by
+constexpr int kMmaWarpsM = 4;
+constexpr int kMmaWarpsN = 2;
+constexpr int kMmaMt = 2;
+constexpr int kMmaStages = 3;
 
-static_assert(kUnitsPerRank * kGateCluster == kGateUnits,
-              "the ranks share the tile's units evenly");
-static_assert(kChunkRows * kUnitsPerRank <= kGateThreads,
-              "one thread per (row, unit) of a rank's update");
-static_assert(kChunkRows % kGateRows == 0, "a chunk is whole row groups");
-
-// Sums a gate block keeps apart for each output: float32 one (the whole
-// K product), bfloat16 two (part 0 the input side x, ctx; part 1 the h
-// side), since the reference rounds each side's product on its own.
-template <typename S>
-__host__ __device__ constexpr int gate_parts() {
-  return sizeof(S) == 2 ? 2 : 1;
-}
-
-// Rows of K in one share of a segment: whole warp steps of kGateSub rows
-// and whole 16-byte copies.
-template <typename S>
-__host__ __device__ constexpr int gate_share_step() {
-  return per_copy<S>() > kGateSub ? per_copy<S>() : kGateSub;
-}
-
-// Rank r's rows of K: [x_lo, x_lo + nx) of the x segment, [h_lo, h_lo +
-// nh) of the h segment and of the ctx segment.  A block holds them as
-// local rows: x rows, then h rows, then ctx rows.  With E and H multiples
-// of kGateCluster * gate_share_step<S>() every share is whole 16-byte
-// pieces and whole warp steps.
-struct GateSlice {
-  int x_lo, nx, h_lo, nh;
+constexpr int kTileCols = 4 * kTileUnits;
+// A thread per 4 rows x 2 units; floats a stage (a tile's inputs and
+// weights).
+template <int ROWS>
+struct TileShape {
+  static constexpr int kThreads = (ROWS / 4) * (kTileUnits / 2);
+  static constexpr int kStages = ROWS == kTileRows ? kTileStages
+                                                   : kTileStagesMid;
+  static constexpr int kStage = ROWS * kTilePitch + kChunk * kTileCols;
 };
 
-__host__ __device__ __forceinline__ GateSlice gate_slice(int E, int H,
-                                                         int r) {
-  GateSlice s;
-  s.x_lo = share_lo(E, r, kGateCluster);
-  s.nx = share_lo(E, r + 1, kGateCluster) - s.x_lo;
-  s.h_lo = share_lo(H, r, kGateCluster);
-  s.nh = share_lo(H, r + 1, kGateCluster) - s.h_lo;
-  return s;
-}
+static_assert(kTileUnits == 32, "16 threads a row group, 2 units each");
+static_assert(kTilePitch % 4 == 0 && kTilePitch >= kChunk,
+              "16-byte rows of a tile's inputs");
 
-// The most local rows any rank holds.
-inline int gate_slice_rows(int E, int H) {
-  int n = 0;
-  for (int r = 0; r < kGateCluster; ++r) {
-    const GateSlice s = gate_slice(E, H, r);
-    n = s.nx + 2 * s.nh > n ? s.nx + 2 * s.nh : n;
+// Tile t of K's order (the h rows, the x rows, the ctx rows): its inputs
+// (src, row stride ld, first column col), the first row of w it
+// multiplies, and whether it is a ctx tile.
+template <typename S>
+struct KTile {
+  const S* src;
+  int ld, col, w_row;
+  bool ctx;
+};
+
+template <typename S>
+__device__ __forceinline__ KTile<S> k_tile(int t, const S* x, const S* h,
+                                           const S* ctx, int E, int H) {
+  const int nh = H / kChunk;
+  const int nx = E / kChunk;
+  if (t < nh) return {h, H, t * kChunk, E + H + t * kChunk, false};
+  if (t < nh + nx) {
+    t -= nh;
+    return {x, E, t * kChunk, t * kChunk, false};
   }
-  return n;
+  t -= nh + nx;
+  return {ctx, H, t * kChunk, E + t * kChunk, true};
 }
 
-// Shared memory of a gate block: the warps' partial sums (per part,
-// kGateWarps x kGateRows x kGateCols, float32), the weight slice (4 gate
-// planes of n x kGateUnits, in S), two row groups' inputs (2 x kGateRows x
-// n in S: one in use, one arriving) and the block sums the pair sends this
-// rank (per part, kGateCluster x kChunkRows x kRankCols, float32).
-template <typename S>
-inline size_t gate_smem_bytes(int E, int H) {
-  const size_t n = gate_slice_rows(E, H);
-  return (size_t)gate_parts<S>() *
-             (kGateWarps * kGateRows * kGateCols +
-              kGateCluster * kChunkRows * kRankCols) *
-             sizeof(float) +
-         (n * kGateCols + 2 * kGateRows * n) * sizeof(S);
+// The summation tree's sides: float32 one (every tile); bfloat16 the h side
+// (tiles [0, nh)) and the input side (tiles [nh, nt)).  A side is n tiles
+// from `first` cut into c contiguous chunks.
+struct TreeSide {
+  int first, n, c;
+};
+
+// bfloat16: the h side's share of the kTreeChunks chunks, round(8 nh / nt)
+// within [1, 7].
+__host__ __device__ __forceinline__ int tree_h_chunks(int nh, int nt) {
+  const int c = (2 * kTreeChunks * nh + nt) / (2 * nt);
+  return c < 1 ? 1 : (c > kTreeChunks - 1 ? kTreeChunks - 1 : c);
 }
 
-// Block-wide cp.async copies of `len` inputs of batch rows r0 .. r0 + rows
-// (src row stride ld, from column src_lo) to local rows kb .. kb + len of
-// xs[row][kk] (row stride n).  Not committed.  Rows of the group past the
-// batch are left as they are: their sums are never stored.
+template <bool kBf16>
+__host__ __device__ __forceinline__ TreeSide tree_side(int side, int E,
+                                                       int H) {
+  const int nh = H / kChunk;
+  const int nt = (E + 2 * H) / kChunk;
+  if (!kBf16) return {0, nt, kTreeChunks};
+  const int ch = tree_h_chunks(nh, nt);
+  return side == 0 ? TreeSide{0, nh, ch}
+                   : TreeSide{nh, nt - nh, kTreeChunks - ch};
+}
+
+// The first tile (global index) of chunk j of a side: chunk j holds tiles
+// [chunk_lo(s, j), chunk_lo(s, j + 1)), empty when n < c leaves it none.
+__host__ __device__ __forceinline__ int chunk_lo(const TreeSide& s, int j) {
+  return s.first + s.n * j / s.c;
+}
+
+// Walks a side's tiles in order and says which tile ends a (non-empty)
+// chunk; a division only where a chunk ends.
+struct ChunkWalk {
+  TreeSide s;
+  int j, end;  // end: the first chunk boundary past the tiles walked
+  __device__ __forceinline__ explicit ChunkWalk(const TreeSide& side)
+      : s(side), j(0), end(side.first) {
+    pass(side.first);
+  }
+  __device__ __forceinline__ void pass(int t) {
+    while (j < s.c && end <= t) end = chunk_lo(s, ++j);
+  }
+  // Tile t, the next of the side in order: does it end its chunk?
+  __device__ __forceinline__ bool last(int t) {
+    const bool l = t + 1 == end;
+    if (l) pass(t + 1);
+    return l;
+  }
+};
+
+// 16-byte copy that writes zeros when !valid (a row past B): gmem must
+// still be a valid address.
+__device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem,
+                                                 bool valid) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(smem);
+  const int n = valid ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(n)
+               : "memory");
+}
+
+// Rows [0, n_rows) of a tile's inputs into xs[row][kk] (row pitch pitch),
+// rows at or past `rows` (past the batch) zero-filled, by `threads`
+// threads.  Not committed.
 template <typename S>
-__device__ __forceinline__ void issue_inputs(
-    S* xs, const S* __restrict__ src, int ld, int src_lo, int kb, int len,
-    int r0, int rows, int n) {
+__device__ __forceinline__ void issue_inputs(S* xs, const KTile<S>& k,
+                                             int r0, int rows, int n_rows,
+                                             int pitch, int tid,
+                                             int threads) {
   constexpr int kPer = per_copy<S>();
-  const int chunks = len / kPer;
-  for (int i = threadIdx.x; i < rows * chunks; i += blockDim.x) {
-    const int r = i / chunks;
-    const int c = i - r * chunks;
-    cp_async16(xs + r * n + kb + kPer * c,
-               src + (size_t)(r0 + r) * ld + src_lo + kPer * c);
+  constexpr int kCopies = kChunk / kPer;  // copies a row
+  for (int q = tid; q < n_rows * kCopies; q += threads) {
+    const int r = q / kCopies, p = q % kCopies;
+    const bool live = r < rows;
+    cp_async16_zfill(xs + r * pitch + kPer * p,
+                     k.src + (size_t)(r0 + (live ? r : 0)) * k.ld + k.col +
+                         kPer * p,
+                     live);
   }
 }
 
-// All three inputs (x, h, ctx) of batch rows r0 .. r0 + rows into xs,
-// committed as one group.
+// A tile's weights for `units` units from unit j0: ws[kk][gate * units +
+// unit] (row pitch pitch).  Not committed.
 template <typename S>
-__device__ __forceinline__ void issue_all_inputs(
-    S* xs, const S* __restrict__ x, const S* __restrict__ h,
-    const S* __restrict__ ctx, const GateSlice& s, int r0, int rows, int n,
-    int E, int H) {
-  issue_inputs(xs, x, E, s.x_lo, 0, s.nx, r0, rows, n);
-  issue_inputs(xs, h, H, s.h_lo, s.nx, s.nh, r0, rows, n);
-  issue_inputs(xs, ctx, H, s.h_lo, s.nx + s.nh, s.nh, r0, rows, n);
-  cp_async_commit();
-}
-
-__device__ __forceinline__ void fma4(float (&acc)[4], float a, float4 w) {
-  acc[0] = fmaf(a, w.x, acc[0]);
-  acc[1] = fmaf(a, w.y, acc[1]);
-  acc[2] = fmaf(a, w.z, acc[2]);
-  acc[3] = fmaf(a, w.w, acc[3]);
-}
-
-// Four consecutive weights of a gate-plane row as float32.
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const float2 lo =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-  const float2 hi =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-  return make_float4(lo.x, lo.y, hi.x, hi.y);
-}
-
-// A warp's steps are groups of kGateSub local rows: step i covers rows
-// kGateSub * i .. + kGateSub, and warp w takes steps w, w + kGateWarps, ...
-// Lane l works on gate l / 8, row kGateSub * i + (l / 2) % 4 and units
-// 4 (l % 2) .. + 4; a quarter-warp reads 4 whole rows of one gate plane.
-
-// This warp's first step at or after ib.
-__device__ __forceinline__ int first_step(int ib) {
-  const int warp = threadIdx.x >> 5;
-  return ib + ((warp - ib) % kGateWarps + kGateWarps) % kGateWarps;
-}
-
-// Issue the cp.async copies of the weights this lane's pair reads in its
-// steps of [ib, ie) — w rows w_lo + (local row - kk_lo) — into
-// ws[gate][kk][unit], and commit them as one group.  float32: each lane
-// copies the 4 units it reads; bfloat16: the even lane of a pair copies
-// the row's 8 units, read by both.
-template <typename S>
-__device__ __forceinline__ void issue_weights(
-    S* ws, const S* __restrict__ w, int n, int ib, int ie, int kk_lo,
-    int w_lo, int lane, int H, int j0) {
-  constexpr bool kPairCopy = per_copy<S>() == kGateUnits;
-  const int g = lane >> 3;
-  const int u4 = kPairCopy ? 0 : (lane & 1) * 4;
-  const int sub = (lane >> 1) & 3;
-  if (!kPairCopy || (lane & 1) == 0) {
-    for (int i = first_step(ib); i < ie; i += kGateWarps) {
-      const int kk = kGateSub * i + sub;
-      cp_async16(ws + (g * n + kk) * kGateUnits + u4,
-                 w + (size_t)(w_lo + kk - kk_lo) * 4 * H + g * H + j0 + u4);
-    }
+__device__ __forceinline__ void issue_weights(S* ws, const S* __restrict__ w,
+                                              const KTile<S>& k, int j0,
+                                              int units, int pitch, int H,
+                                              int tid, int threads) {
+  constexpr int kPer = per_copy<S>();
+  const int gate_copies = units / kPer;
+  const int row_copies = 4 * gate_copies;
+  for (int q = tid; q < kChunk * row_copies; q += threads) {
+    const int kk = q / row_copies, rest = q % row_copies;
+    const int g = rest / gate_copies, p = rest % gate_copies;
+    cp_async16(ws + kk * pitch + g * units + kPer * p,
+               w + (size_t)(k.w_row + kk) * 4 * H + g * H + j0 + kPer * p);
   }
-  cp_async_commit();
-}
-
-// After a wait on this lane's own weight copies: in bfloat16 the pair's
-// even lane copied them, so the warp meets first.
-template <typename S>
-__device__ __forceinline__ void pair_copies_visible() {
-  if (per_copy<S>() == kGateUnits) __syncwarp();
-}
-
-// acc[row][unit] += xs[row][kk] * ws[gate][kk][unit] over this lane's rows
-// of its steps in [ib, ie), for the first RP batch rows, in step order.
-template <int RP, typename S>
-__device__ __forceinline__ void fma_span(float (&acc)[kGateRows][4],
-                                         const S* ws, const S* xs, int n,
-                                         int ib, int ie, int lane) {
-  const int i0 = first_step(ib);
-  const S* wl = ws + (lane >> 3) * n * kGateUnits + (lane & 1) * 4;
-  const int sub = (lane >> 1) & 3;
-#pragma unroll 2
-  for (int i = i0; i < ie; i += kGateWarps) {
-    const int kk = kGateSub * i + sub;
-    const float4 wv = load4(wl + kk * kGateUnits);
-#pragma unroll
-    for (int r = 0; r < RP; ++r) fma4(acc[r], load_f(xs[r * n + kk]), wv);
-  }
-}
-
-// The same for a group of `rows` live rows: the narrowest span that holds
-// them (each row's sum is the same chain whatever the span).
-template <typename S>
-__device__ __forceinline__ void fma_rows(float (&acc)[kGateRows][4],
-                                         const S* ws, const S* xs, int n,
-                                         int ib, int ie, int rows, int lane) {
-  if (rows <= 4) fma_span<4>(acc, ws, xs, n, ib, ie, lane);
-  else fma_span<kGateRows>(acc, ws, xs, n, ib, ie, lane);
-}
-
-// The four lanes of a column (lanes l, l ^ 2, l ^ 4, l ^ 6) add their sums
-// by a butterfly; every one of them ends with the same bits.
-template <int RP>
-__device__ __forceinline__ void sum_lanes(float (&acc)[kGateRows][4]) {
-#pragma unroll
-  for (int r = 0; r < RP; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      acc[r][c] += __shfl_xor_sync(0xffffffffu, acc[r][c], 2);
-      acc[r][c] += __shfl_xor_sync(0xffffffffu, acc[r][c], 4);
-    }
-}
-
-__device__ __forceinline__ void sum_lanes_rows(float (&acc)[kGateRows][4],
-                                               int rows) {
-  if (rows <= 4) sum_lanes<4>(acc);
-  else sum_lanes<kGateRows>(acc);
 }
 
 __device__ __forceinline__ float sigmoidf_(float x) {
   return 1.f / (1.f + expf(-x));
+}
+
+// The float32 update from the gates (i, f, g, o; bias added).
+__device__ __forceinline__ void lstm_f32(const float (&g)[4], float c_old,
+                                         float* c_out, float* h_out) {
+  const float cn = fmaf(sigmoidf_(g[1]), c_old,
+                        __fmul_rn(sigmoidf_(g[0]), tanhf(g[2])));
+  *c_out = cn;
+  *h_out = __fmul_rn(sigmoidf_(g[3]), tanhf(cn));
 }
 
 // x rounded to bfloat16 and back: where a bfloat16 op of the reference
@@ -304,245 +272,743 @@ __device__ __forceinline__ float sigmoid_bf16(float x) {
   return rbf(1.f / rbf(1.f + rbf(expf(-x))));
 }
 
-// Grid: kGateCluster blocks for each of the H / kGateUnits column tiles.
-// n_rows is gate_slice_rows(E, H) (the shared-memory layout's row count).
-// Needs E and H multiples of kGateCluster * gate_share_step<S>() and
-// 16-byte aligned x, h, w (the wrapper checks).
+// The bfloat16 update: gh = dot(h, W_h) + b, gi = dot([x, ctx], W_i), each
+// rounded; then the reference's chain of roundings.
+__device__ __forceinline__ void lstm_bf16(const float (&gin)[4],
+                                          const float (&gh)[4],
+                                          const float (&b)[4], float c_old,
+                                          __nv_bfloat16* c_out,
+                                          __nv_bfloat16* h_out) {
+  float g[4];
+#pragma unroll
+  for (int gi = 0; gi < 4; ++gi)
+    g[gi] = rbf(rbf(rbf(gh[gi]) + b[gi]) + rbf(gin[gi]));
+  const float ig = sigmoid_bf16(g[0]);
+  const float fg = sigmoid_bf16(g[1]);
+  const float gg = rbf(tanhf(g[2]));
+  const float og = sigmoid_bf16(g[3]);
+  const float cn = rbf(rbf(fg * c_old) + rbf(ig * gg));
+  *c_out = __float2bfloat16_rn(cn);
+  *h_out = __float2bfloat16_rn(og * rbf(tanhf(cn)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s));
+}
+
+// d += a (16 x 16, row) * b (16 x 8, col), bf16 in, float32 sums.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The B fragments of one 16-row step for the 8 units at column `unit0` of
+// each gate strip (strips `units` apart): bf[gate][0..1].
+__device__ __forceinline__ void load_b_frags(uint32_t (&bf)[4][2],
+                                             const __nv_bfloat16* ws,
+                                             int pitch_w, int units,
+                                             int unit0, int ks, int lane) {
+#pragma unroll
+  for (int gp = 0; gp < 4; gp += 2) {
+    // Matrices: (k 0-7, gate gp), (k 8-15, gp), (k 0-7, gp + 1), (k 8-15,
+    // gp + 1).
+    uint32_t r[4];
+    ldmatrix_x4_trans(r, ws + (ks + (lane & 7) + ((lane >> 3) & 1) * 8) *
+                                  pitch_w +
+                             (gp + (lane >> 4)) * units + unit0);
+    bf[gp][0] = r[0];
+    bf[gp][1] = r[1];
+    bf[gp + 1][0] = r[2];
+    bf[gp + 1][1] = r[3];
+  }
+}
+
+// The A fragment of one 16-row step: rows row0 .. row0 + 16 of as.
+__device__ __forceinline__ void load_a_frag(uint32_t (&a)[4],
+                                            const __nv_bfloat16* as,
+                                            int pitch_a, int row0, int ks,
+                                            int lane) {
+  ldmatrix_x4(a, as + (row0 + (lane & 7) + ((lane >> 3) & 1) * 8) * pitch_a +
+                     ks + (lane >> 4) * 8);
+}
+
+// ---------------------------------------------------------------------------
+// gate_kernel<S>: the weight stream, small B.  Grid (H / Units * Cluster,
+// ceil(B / Rows)), clusters of Cluster blocks: rank r computes the tree's
+// chunks r, r + Cluster, ..., one group of 64 threads a chunk.
+
 template <typename S>
-__global__ void __cluster_dims__(kGateCluster, 1, 1)
-    __launch_bounds__(kGateThreads, 1)
-    gate_kernel(const S* __restrict__ x, const S* __restrict__ ctx,
-                const S* __restrict__ h, const S* __restrict__ w,
-                const S* __restrict__ bias, const S* __restrict__ c,
-                S* __restrict__ c_out, S* __restrict__ h_out, int B, int E,
-                int H, int n_rows) {
-  namespace cg = cooperative_groups;
-  constexpr int kParts = gate_parts<S>();
-  constexpr int kHSide = kParts - 1;  // the part the h rows sum into
-  cg::cluster_group cluster = cg::this_cluster();
-  extern __shared__ __align__(16) float gate_smem[];
-  float* red = gate_smem;                       // [part][warp][row][col]
-  S* ws = reinterpret_cast<S*>(                 // [gate][kk][unit]
-      red + kParts * kGateWarps * kGateRows * kGateCols);
-  S* xbuf = ws + n_rows * kGateCols;            // 2 x [row][kk], stride n
-  float* part = reinterpret_cast<float*>(       // [part][src rank][row][col]
-      xbuf + 2 * kGateRows * n_rows);
+struct StreamShape {
+  static constexpr bool kBf16 = sizeof(S) == 2;
+  static constexpr int kUnits = kBf16 ? kStreamUnitsBf16 : kStreamUnitsF32;
+  static constexpr int kCluster = kBf16 ? kStreamClusterBf16
+                                        : kStreamClusterF32;
+  static constexpr int kRows = kBf16 ? kStreamRowsBf16 : kStreamRowsF32;
+  static constexpr int kSlots = kBf16 ? kStreamSlotsBf16 : kStreamSlotsF32;
+  static constexpr int kGroups = kTreeChunks / kCluster;  // chunks a rank
+  static constexpr int kThreads = kGroups * kStreamGroup;
+  static constexpr int kCols = 4 * kUnits;
+  static constexpr int kOwned = kUnits / kCluster;  // units a rank finishes
+  static constexpr int kPartCols = 4 * kOwned;
+  static constexpr int kPitchW = kBf16 ? kCols + kMmaPad : kCols;
+  static constexpr int kPitchA = kBf16 ? kChunk + kMmaPad : kChunk;
+  static constexpr int kSlot = kChunk * kPitchW + kRows * kPitchA;
+  // float32: a thread per column and kRowsPer rows of a group's chunk;
+  // bfloat16: a warp per 8 units.
+  static constexpr int kRowsPer = kRows * kCols / kStreamGroup;
+  static_assert((kSlot * sizeof(S)) % 16 == 0, "16-byte slots");
+  static_assert(kOwned * kCluster == kUnits, "ranks share units evenly");
+  static_assert(!kBf16 || (kRows == 16 && kUnits == 8 * (kStreamGroup / 32)),
+                "bfloat16: one m16 tile, a warp per 8 units");
+  static_assert(kBf16 || kRowsPer * kStreamGroup == kRows * kCols,
+                "float32: whole rows a thread");
+};
 
-  const int rank = (int)cluster.block_rank();
-  const int j0 = (blockIdx.x / kGateCluster) * kGateUnits;
-  const GateSlice s = gate_slice(E, H, rank);
-  const int n = s.nx + 2 * s.nh;
-  const int x_steps = s.nx / kGateSub;
-  const int xh_steps = (s.nx + s.nh) / kGateSub;
-  const int n_steps = n / kGateSub;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
+template <typename S>
+inline size_t stream_smem_bytes() {
+  using Sh = StreamShape<S>;
+  return sizeof(S) * (size_t)Sh::kGroups * Sh::kSlots * Sh::kSlot +
+         sizeof(float) * kTreeChunks * Sh::kRows * Sh::kPartCols;
+}
 
-  // cp.async groups, oldest first: the first row group's x and h inputs,
-  // then this lane's weights of the x, h and ctx segments.
-  const int rows0 = min(kGateRows, B);
-  issue_inputs(xbuf, x, E, s.x_lo, 0, s.nx, 0, rows0, n);
-  issue_inputs(xbuf, h, H, s.h_lo, s.nx, s.nh, 0, rows0, n);
-  cp_async_commit();
-  issue_weights(ws, w, n, 0, x_steps, 0, s.x_lo, lane, H, j0);
-  issue_weights(ws, w, n, x_steps, xh_steps, s.nx, E + H + s.h_lo, lane, H,
-                j0);
-  issue_weights(ws, w, n, xh_steps, n_steps, s.nx + s.nh, E + s.h_lo, lane,
-                H, j0);
+// A barrier of one group's kStreamGroup threads (named barrier 1 + g).
+__device__ __forceinline__ void group_sync(int g) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + g), "n"(kStreamGroup)
+               : "memory");
+}
 
-  for (int r0 = 0; r0 < B; r0 += kGateRows) {
-    const int rows = min(kGateRows, B - r0);
-    const int grp = r0 / kGateRows;
-    S* xs = xbuf + (grp & 1) * kGateRows * n;
-    S* xs_next = xbuf + ((grp + 1) & 1) * kGateRows * n;
-    const bool more = r0 + kGateRows < B;
-    float acc[kParts][kGateRows][4];
-#pragma unroll
-    for (int p = 0; p < kParts; ++p)
-#pragma unroll
-      for (int r = 0; r < kGateRows; ++r)
-        acc[p][r][0] = acc[p][r][1] = acc[p][r][2] = acc[p][r][3] = 0.f;
-
-    if (grp == 0) {
-      // The x and h rows run while the attention launch may still run.
-      cp_async_wait<2>();  // the inputs and this lane's x weights
-      __syncthreads();
-      fma_rows(acc[0], ws, xs, n, 0, x_steps, rows, lane);
-      cp_async_wait<1>();  // this lane's h weights
-      pair_copies_visible<S>();
-      fma_rows(acc[kHSide], ws, xs, n, x_steps, xh_steps, rows, lane);
-      griddep_wait();  // ctx comes from the attention launch
-      issue_inputs(xs, ctx, H, s.h_lo, s.nx + s.nh, s.nh, 0, rows, n);
-      cp_async_commit();
-      if (more) {
-        issue_all_inputs(xs_next, x, h, ctx, s, r0 + kGateRows,
-                         min(kGateRows, B - r0 - kGateRows), n, E, H);
-        cp_async_wait<1>();  // all but the next group's inputs
-      } else {
-        cp_async_wait<0>();
-      }
-      __syncthreads();
-      fma_rows(acc[0], ws, xs, n, xh_steps, n_steps, rows, lane);
-    } else {
-      // This group's inputs were issued during the last group; the next
-      // group's go into the buffer the last group read.
-      if (more) {
-        issue_all_inputs(xs_next, x, h, ctx, s, r0 + kGateRows,
-                         min(kGateRows, B - r0 - kGateRows), n, E, H);
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
-      }
-      __syncthreads();
-      if (kParts == 1) {
-        fma_rows(acc[0], ws, xs, n, 0, xh_steps, rows, lane);
-      } else {
-        fma_rows(acc[0], ws, xs, n, 0, x_steps, rows, lane);
-        fma_rows(acc[kHSide], ws, xs, n, x_steps, xh_steps, rows, lane);
-      }
-      fma_rows(acc[0], ws, xs, n, xh_steps, n_steps, rows, lane);
-    }
-#pragma unroll
-    for (int p = 0; p < kParts; ++p) sum_lanes_rows(acc[p], rows);
-
-    // The warps' sums, added in warp order, go to the rank that owns their
-    // units: part[part][this rank][row in chunk][gate * 4 + unit % 4] of
-    // the owner's shared memory.
-    if ((lane & 6) == 0) {
-      const int col = (lane >> 3) * kGateUnits + (lane & 1) * 4;
-#pragma unroll
-      for (int p = 0; p < kParts; ++p)
-#pragma unroll
-        for (int r = 0; r < kGateRows; ++r)
-          *reinterpret_cast<float4*>(
-              red + ((p * kGateWarps + warp) * kGateRows + r) * kGateCols +
-              col) = make_float4(acc[p][r][0], acc[p][r][1], acc[p][r][2],
-                                 acc[p][r][3]);
-    }
-    __syncthreads();
-    const int chunk_row0 = r0 % kChunkRows;
-    if (chunk_row0 == 0 && r0 > 0) cluster_wait();  // the last chunk is read
-    const int part_elems = rows * kGateCols;
-    for (int e = threadIdx.x; e < kParts * part_elems; e += kGateThreads) {
-      const int p = kParts == 1 ? 0 : e / part_elems;
-      const int pe = e - p * part_elems;
-      const float* rp = red + p * kGateWarps * kGateRows * kGateCols;
-      float sum = rp[pe];
-#pragma unroll
-      for (int q = 1; q < kGateWarps; ++q)
-        sum += rp[q * kGateRows * kGateCols + pe];
-      const int r = pe / kGateCols;
-      const int col = pe % kGateCols;            // gate * kGateUnits + unit
-      const int unit = col % kGateUnits;
-      float* dst = cluster.map_shared_rank(part, unit / kUnitsPerRank);
-      dst[((p * kGateCluster + rank) * kChunkRows + chunk_row0 + r) *
-              kRankCols +
-          (col / kGateUnits) * kUnitsPerRank + unit % kUnitsPerRank] = sum;
-    }
-
-    // At a chunk's end: both ranks' sums are in; rank r finishes units
-    // [4 r, 4 r + 4) of the tile for the chunk's rows (ranks added in
-    // order, the bias, the update).
-    const int chunk_rows = chunk_row0 + rows;
-    if (chunk_rows == kChunkRows || !more) {
-      // The bias and the cell state load while the pair meets.
-      const bool owner = threadIdx.x < chunk_rows * kUnitsPerRank;
-      const int rr = threadIdx.x / kUnitsPerRank;
-      const int uu = threadIdx.x % kUnitsPerRank;
-      const int u = rank * kUnitsPerRank + uu;
-      const size_t idx = (size_t)(r0 + rows - chunk_rows + rr) * H + j0 + u;
-      float b4[4], c_old = 0.f;
-      if (owner) {
-#pragma unroll
-        for (int gi = 0; gi < 4; ++gi) b4[gi] = load_f(bias[gi * H + j0 + u]);
-        c_old = load_f(c[idx]);
-      }
-      cluster_arrive();
-      cluster_wait();
-      if (owner) {
-        float gate[kParts][4];
-#pragma unroll
-        for (int p = 0; p < kParts; ++p)
-#pragma unroll
-          for (int gi = 0; gi < 4; ++gi) {
-            float sum = 0.f;
-#pragma unroll
-            for (int q = 0; q < kGateCluster; ++q)
-              sum += part[((p * kGateCluster + q) * kChunkRows + rr) *
-                              kRankCols +
-                          gi * kUnitsPerRank + uu];
-            gate[p][gi] = kParts == 1 ? sum + b4[gi] : sum;
-          }
-        if (kParts == 1) {
-          const float cn = sigmoidf_(gate[0][1]) * c_old +
-                           sigmoidf_(gate[0][0]) * tanhf(gate[0][2]);
-          c_out[idx] = store_as<S>(cn);
-          h_out[idx] = store_as<S>(sigmoidf_(gate[0][3]) * tanhf(cn));
-        } else {
-          // gh = dot(h, W_h) + b, gi = dot([x, ctx], W_i), each rounded.
-          float g[4];
-#pragma unroll
-          for (int gi = 0; gi < 4; ++gi)
-            g[gi] = rbf(rbf(rbf(gate[kHSide][gi]) + b4[gi]) +
-                        rbf(gate[0][gi]));
-          const float ig = sigmoid_bf16(g[0]);
-          const float fg = sigmoid_bf16(g[1]);
-          const float gg = rbf(tanhf(g[2]));
-          const float og = sigmoid_bf16(g[3]);
-          const float cn = rbf(rbf(fg * c_old) + rbf(ig * gg));
-          c_out[idx] = store_as<S>(cn);
-          h_out[idx] = store_as<S>(og * rbf(tanhf(cn)));
-        }
-      }
-      if (more) cluster_arrive();  // this rank is done with its sums
-    }
+// Wait until at most n of this thread's cp.async groups are in flight
+// (n clamped to 7: waiting for more is still correct).
+__device__ __forceinline__ void cp_async_wait_n(int n) {
+  switch (n < 7 ? n : 7) {
+    case 0: cp_async_wait<0>(); break;
+    case 1: cp_async_wait<1>(); break;
+    case 2: cp_async_wait<2>(); break;
+    case 3: cp_async_wait<3>(); break;
+    case 4: cp_async_wait<4>(); break;
+    case 5: cp_async_wait<5>(); break;
+    case 6: cp_async_wait<6>(); break;
+    default: cp_async_wait<7>(); break;
   }
 }
 
 template <typename S>
-static cudaError_t prepare_gate(size_t smem_bytes) {
-  static size_t opted = 0;
-  return opt_in_shared((const void*)gate_kernel<S>, smem_bytes, &opted);
+__global__ void __launch_bounds__(StreamShape<S>::kThreads)
+    gate_kernel(const S* __restrict__ x, const S* __restrict__ ctx,
+                const S* __restrict__ h, const S* __restrict__ w,
+                const S* __restrict__ bias, const S* __restrict__ c,
+                S* __restrict__ c_out, S* __restrict__ h_out, int B, int E,
+                int H) {
+  using Sh = StreamShape<S>;
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ __align__(16) float gate_smem[];
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int g = tid / kStreamGroup;   // this thread's group: one chunk
+  const int gt = tid % kStreamGroup;  // its index in the group
+  S* slots = reinterpret_cast<S*>(gate_smem) + g * Sh::kSlots * Sh::kSlot;
+  float* part = reinterpret_cast<float*>(  // [chunk][row][gate][owned unit]
+      reinterpret_cast<S*>(gate_smem) + Sh::kGroups * Sh::kSlots * Sh::kSlot);
+  const int rank = (int)cluster.block_rank();
+  const int j0 = (blockIdx.x / Sh::kCluster) * Sh::kUnits;
+  const int r0 = blockIdx.y * Sh::kRows;
+  const int rows = min(Sh::kRows, B - r0);
+  // The group's chunk q of the tree: chunk j of `side` (bfloat16: the h
+  // side's chunks first).
+  const int q = rank + Sh::kCluster * g;
+  const TreeSide first = tree_side<Sh::kBf16>(0, E, H);
+  const bool on_first = !Sh::kBf16 || q < first.c;
+  const TreeSide side = on_first ? first : tree_side<Sh::kBf16>(1, E, H);
+  const int j = on_first ? q : q - first.c;
+  const int lo = chunk_lo(side, j);
+  const int mine = chunk_lo(side, j + 1) - lo;
+  cluster_arrive();  // this block runs: its peers may write to it
+
+  auto tile_of = [&](int m) {
+    return k_tile(lo + m, x, h, ctx, E, H);
+  };
+  auto slot_w = [&](int m) { return slots + (m % Sh::kSlots) * Sh::kSlot; };
+  auto slot_x = [&](int m) { return slot_w(m) + kChunk * Sh::kPitchW; };
+  bool ctx_ready = false;  // the attention launch is done (group-uniform)
+  // Tile m of the chunk into slot m % Slots; a ctx tile's inputs wait for
+  // the attention.  Not committed.
+  auto issue = [&](int m) {
+    const KTile<S> k = tile_of(m);
+    issue_weights(slot_w(m), w, k, j0, Sh::kUnits, Sh::kPitchW, H, gt,
+                  kStreamGroup);
+    if (!k.ctx || ctx_ready)
+      issue_inputs(slot_x(m), k, r0, rows, Sh::kRows, Sh::kPitchA, gt,
+                   kStreamGroup);
+  };
+
+  for (int m = 0; m < min(mine, Sh::kSlots); ++m) {
+    issue(m);
+    cp_async_commit();
+  }
+  // The chunk's sums, from zero, over its tiles in order: float32 a thread
+  // per column and kRowsPer rows (accf[row]); bfloat16 warp gt / 32's 8
+  // units, all four gates (accb[gate][fragment]).
+  const int col = gt % Sh::kCols;
+  const int rq = (gt / Sh::kCols) * Sh::kRowsPer;
+  float accf[Sh::kBf16 ? 1 : Sh::kRowsPer], accb[4][4];
+#pragma unroll
+  for (int r = 0; r < (Sh::kBf16 ? 1 : Sh::kRowsPer); ++r) accf[r] = 0.f;
+#pragma unroll
+  for (int gi = 0; gi < 4; ++gi)
+    accb[gi][0] = accb[gi][1] = accb[gi][2] = accb[gi][3] = 0.f;
+  for (int m = 0; m < mine; ++m) {
+    const int issued = min(mine, m + Sh::kSlots);  // tiles issued so far
+    if (tile_of(m).ctx && !ctx_ready) {
+      // The first ctx tile: the weights of this and the later issued
+      // tiles are in flight; their inputs come from the attention launch.
+      griddep_wait();
+      ctx_ready = true;
+      for (int n = m; n < issued; ++n)
+        issue_inputs(slot_x(n), tile_of(n), r0, rows, Sh::kRows, Sh::kPitchA,
+                     gt, kStreamGroup);
+      cp_async_commit();
+      cp_async_wait<0>();
+    } else {
+      cp_async_wait_n(issued - m - 1);  // tile m
+    }
+    group_sync(g);
+    if constexpr (!Sh::kBf16) {
+      const float* ws = slot_w(m);
+      const float* xs = slot_x(m);
+#pragma unroll 2
+      for (int kk = 0; kk < kChunk; kk += 4) {
+        float wv[4];
+#pragma unroll
+        for (int qq = 0; qq < 4; ++qq) wv[qq] = ws[(kk + qq) * Sh::kPitchW + col];
+#pragma unroll
+        for (int r = 0; r < Sh::kRowsPer; ++r) {
+          const float4 xv =
+              *reinterpret_cast<const float4*>(xs + (rq + r) * kChunk + kk);
+          accf[r] = fmaf(xv.x, wv[0], accf[r]);
+          accf[r] = fmaf(xv.y, wv[1], accf[r]);
+          accf[r] = fmaf(xv.z, wv[2], accf[r]);
+          accf[r] = fmaf(xv.w, wv[3], accf[r]);
+        }
+      }
+    } else {
+      const __nv_bfloat16* ws = slot_w(m);
+      const __nv_bfloat16* xs = slot_x(m);
+#pragma unroll
+      for (int ks = 0; ks < kChunk; ks += 16) {
+        uint32_t bf[4][2], a[4];
+        load_b_frags(bf, ws, Sh::kPitchW, Sh::kUnits, (gt / 32) * 8, ks, lane);
+        load_a_frag(a, xs, Sh::kPitchA, 0, ks, lane);
+#pragma unroll
+        for (int gi = 0; gi < 4; ++gi)
+          mma_bf16(accb[gi], a, bf[gi][0], bf[gi][1]);
+      }
+    }
+    group_sync(g);  // the slot is read: refill it
+    if (m + Sh::kSlots < mine) {
+      issue(m + Sh::kSlots);
+      cp_async_commit();
+    }
+  }
+
+  // The update's threads (row, owned unit) load the bias and the cell
+  // state while the cluster meets.
+  const bool owner = tid < Sh::kRows * Sh::kOwned;
+  const int ur = tid / Sh::kOwned, uo = tid % Sh::kOwned;
+  const int jj = j0 + rank * Sh::kOwned + uo;
+  const size_t idx = (size_t)(r0 + ur) * H + jj;
+  const bool live = owner && ur < rows;
+  float b[4], c_old = 0.f;
+#pragma unroll
+  for (int gi = 0; gi < 4; ++gi) b[gi] = live ? load_f(bias[gi * H + jj]) : 0.f;
+  if (live) c_old = load_f(c[idx]);
+
+  cluster_wait();  // every peer runs
+  if (mine > 0) {
+    // The chunk's sums to the ranks that finish their units.
+    if constexpr (!Sh::kBf16) {
+      const int gi = col / Sh::kUnits, u = col % Sh::kUnits;
+      float* dst = cluster.map_shared_rank(part, u / Sh::kOwned);
+#pragma unroll
+      for (int r = 0; r < Sh::kRowsPer; ++r)
+        dst[(q * Sh::kRows + rq + r) * Sh::kPartCols + gi * Sh::kOwned +
+            u % Sh::kOwned] = accf[r];
+    } else {
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int unit = (gt / 32) * 8 + 2 * (lane & 3) + u;
+        float* dst = cluster.map_shared_rank(part, unit / Sh::kOwned);
+#pragma unroll
+        for (int half = 0; half < 2; ++half)
+#pragma unroll
+          for (int gi = 0; gi < 4; ++gi)
+            dst[(q * Sh::kRows + (lane >> 2) + 8 * half) * Sh::kPartCols +
+                gi * Sh::kOwned + unit % Sh::kOwned] = accb[gi][2 * half + u];
+      }
+    }
+  }
+  cluster_arrive();
+  cluster_wait();  // every chunk sum is in its owner's shared memory
+
+  // The update: each side's non-empty chunk sums in chunk order.
+  if (live) {
+    const float* pr = part + ur * Sh::kPartCols + uo;
+    constexpr int kStride = Sh::kRows * Sh::kPartCols;  // a chunk's sums
+    float sums[2][4];  // the first side's, the second's (bfloat16)
+#pragma unroll
+    for (int gi = 0; gi < 4; ++gi) sums[0][gi] = sums[1][gi] = 0.f;
+    for (int qq = 0; qq < first.c; ++qq) {
+      if (chunk_lo(first, qq + 1) == chunk_lo(first, qq)) continue;
+#pragma unroll
+      for (int gi = 0; gi < 4; ++gi)
+        sums[0][gi] =
+            __fadd_rn(sums[0][gi], pr[qq * kStride + gi * Sh::kOwned]);
+    }
+    if constexpr (!Sh::kBf16) {
+      float gs[4];
+#pragma unroll
+      for (int gi = 0; gi < 4; ++gi) gs[gi] = __fadd_rn(sums[0][gi], b[gi]);
+      lstm_f32(gs, c_old, c_out + idx, h_out + idx);
+    } else {
+      const TreeSide second = tree_side<true>(1, E, H);
+      for (int qq = first.c; qq < kTreeChunks; ++qq) {
+        if (chunk_lo(second, qq - first.c + 1) ==
+            chunk_lo(second, qq - first.c))
+          continue;
+#pragma unroll
+        for (int gi = 0; gi < 4; ++gi)
+          sums[1][gi] =
+              __fadd_rn(sums[1][gi], pr[qq * kStride + gi * Sh::kOwned]);
+      }
+      lstm_bf16(sums[1], sums[0], b, c_old, c_out + idx, h_out + idx);
+    }
+  }
 }
 
-static cudaLaunchConfig_t gate_config(int H, size_t smem_bytes,
-                                      cudaStream_t stream) {
+// ---------------------------------------------------------------------------
+// gate_tile_kernel<Rows>: float32, large B.  Grid (H / kTileUnits,
+// ceil(B / Rows)), TileShape<Rows>::kThreads threads.
+
+template <int ROWS>
+inline size_t tile_smem_bytes() {
+  return sizeof(float) * (size_t)TileShape<ROWS>::kStages *
+         TileShape<ROWS>::kStage;
+}
+
+template <int ROWS>
+__global__ void __launch_bounds__(TileShape<ROWS>::kThreads, kTileMinBlocks)
+    gate_tile_kernel(const float* __restrict__ x,
+                     const float* __restrict__ ctx,
+                     const float* __restrict__ h, const float* __restrict__ w,
+                     const float* __restrict__ bias,
+                     const float* __restrict__ c, float* __restrict__ c_out,
+                     float* __restrict__ h_out, int B, int E, int H) {
+  using Sh = TileShape<ROWS>;
+  extern __shared__ __align__(16) float gate_smem[];
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int j0 = blockIdx.x * kTileUnits;
+  const int r0 = blockIdx.y * ROWS;
+  const int rows = min(ROWS, B - r0);
+  const TreeSide side = tree_side<false>(0, E, H);
+  const int tc = lane & 15;                     // units 2 tc, 2 tc + 1
+  const int tr = (tid >> 5) * 2 + (lane >> 4);  // rows 4 tr .. 4 tr + 3
+
+  // Tile p into stage p % Stages: the inputs
+  // xs[row][kk] (row pitch kTilePitch), the weights ws[kk][gate *
+  // kTileUnits + unit].
+  auto issue = [&](int p) {
+    const KTile<float> k = k_tile(p, x, h, ctx, E, H);
+    if (k.ctx) griddep_wait();  // ctx comes from the attention launch
+    float* xs = gate_smem + (p % Sh::kStages) * Sh::kStage;
+    issue_inputs(xs, k, r0, rows, ROWS, kTilePitch, tid, Sh::kThreads);
+    issue_weights(xs + ROWS * kTilePitch, w, k, j0, kTileUnits, kTileCols,
+                  H, tid, Sh::kThreads);
+  };
+
+  float total[4][2][4], acc[4][2][4];  // [row][unit][gate]
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int u = 0; u < 2; ++u)
+#pragma unroll
+      for (int g = 0; g < 4; ++g) total[i][u][g] = acc[i][u][g] = 0.f;
+
+  ChunkWalk walk(side);
+  for (int s = 0; s < Sh::kStages - 1; ++s) {
+    if (s < side.n) issue(s);
+    cp_async_commit();
+  }
+  for (int p = 0; p < side.n; ++p) {
+    cp_async_wait<Sh::kStages - 2>();  // tile p
+    __syncthreads();                   // and every thread is past p - 1
+    if (p + Sh::kStages - 1 < side.n) issue(p + Sh::kStages - 1);
+    cp_async_commit();
+    const float* xs = gate_smem + (p % Sh::kStages) * Sh::kStage;
+    const float* ws = xs + ROWS * kTilePitch;
+#pragma unroll 2
+    for (int kk = 0; kk < kChunk; kk += 4) {
+      float4 xv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        xv[i] = *reinterpret_cast<const float4*>(
+            xs + (4 * tr + i) * kTilePitch + kk);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        float2 wv[4];
+#pragma unroll
+        for (int g = 0; g < 4; ++g)
+          wv[g] = *reinterpret_cast<const float2*>(
+              ws + (kk + q) * kTileCols + g * kTileUnits + 2 * tc);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float xq = q == 0   ? xv[i].x
+                           : q == 1 ? xv[i].y
+                           : q == 2 ? xv[i].z
+                                    : xv[i].w;
+#pragma unroll
+          for (int g = 0; g < 4; ++g) {
+            acc[i][0][g] = fmaf(xq, wv[g].x, acc[i][0][g]);
+            acc[i][1][g] = fmaf(xq, wv[g].y, acc[i][1][g]);
+          }
+        }
+      }
+    }
+    if (walk.last(p)) {  // the chunk's sums into the running sums, from zero
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int u = 0; u < 2; ++u)
+#pragma unroll
+          for (int g = 0; g < 4; ++g) {
+            total[i][u][g] = __fadd_rn(total[i][u][g], acc[i][u][g]);
+            acc[i][u][g] = 0.f;
+          }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = 4 * tr + i;
+    if (r >= rows) continue;
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int j = j0 + 2 * tc + u;
+      float g[4];
+#pragma unroll
+      for (int gi = 0; gi < 4; ++gi)
+        g[gi] = __fadd_rn(total[i][u][gi], bias[gi * H + j]);
+      const size_t idx = (size_t)(r0 + r) * H + j;
+      lstm_f32(g, c[idx], c_out + idx, h_out + idx);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// gate_mma_kernel: bfloat16, large B, the tensor cores.  Grid (H / Units,
+// ceil(B / Rows)), 32 * WM * WN threads.
+
+template <int WM, int WN, int MT, int STAGES>
+struct MmaShape {
+  static constexpr int kThreads = 32 * WM * WN;
+  static constexpr int kRows = 16 * MT * WM;     // batch rows a block
+  static constexpr int kUnits = 8 * WN;          // hidden units a block
+  static constexpr int kCols = 4 * kUnits;
+  static constexpr int kPitchA = kChunk + kMmaPad;  // bf16 a row of inputs
+  static constexpr int kPitchW = kCols + kMmaPad;   // bf16 a row of weights
+  static constexpr int kStage = kRows * kPitchA + kChunk * kPitchW;
+  static constexpr int kOut = MT * 4 * 4;  // a thread's fragment values
+  // The stages (bf16), then the h side's running sums (float32,
+  // [value][thread]).
+  static constexpr size_t kSmem =
+      2 * (size_t)STAGES * kStage + 4 * (size_t)kOut * kThreads;
+  static_assert((kPitchA * 2) % 16 == 0 && (kPitchW * 2) % 16 == 0 &&
+                    (kStage * 2) % 16 == 0,
+                "16-byte rows and stages");
+};
+
+using MmaTile = MmaShape<kMmaWarpsM, kMmaWarpsN, kMmaMt, kMmaStages>;
+
+template <int WM, int WN, int MT, int STAGES>
+__global__ void __launch_bounds__(32 * WM * WN, 2)
+    gate_mma_kernel(const __nv_bfloat16* __restrict__ x,
+                    const __nv_bfloat16* __restrict__ ctx,
+                    const __nv_bfloat16* __restrict__ h,
+                    const __nv_bfloat16* __restrict__ w,
+                    const __nv_bfloat16* __restrict__ bias,
+                    const __nv_bfloat16* __restrict__ c,
+                    __nv_bfloat16* __restrict__ c_out,
+                    __nv_bfloat16* __restrict__ h_out, int B, int E, int H) {
+  using Sh = MmaShape<WM, WN, MT, STAGES>;
+  extern __shared__ __align__(16) float gate_smem[];
+  __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(gate_smem);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int wm = warp / WN;
+  const int wn = warp % WN;
+  const int j0 = blockIdx.x * Sh::kUnits;
+  const int r0 = blockIdx.y * Sh::kRows;
+  const int rows = min(Sh::kRows, B - r0);
+  const TreeSide hs = tree_side<true>(0, E, H);  // the h side
+  const TreeSide is = tree_side<true>(1, E, H);  // the input side
+  const int n = hs.n + is.n;
+  const int wrow = wm * 16 * MT;  // the warp's first row of the tile
+  // The h side's running sums: tot_h[(mt * 4 + gate) * 4 + e][thread].
+  float* tot_h = reinterpret_cast<float*>(smem + STAGES * Sh::kStage);
+  for (int o = 0; o < Sh::kOut; ++o) tot_h[o * Sh::kThreads + tid] = 0.f;
+
+  // Tile p into stage p % STAGES: the inputs as[row][kk] and the weights
+  // ws[kk][gate * Units + unit], each row padded by kMmaPad.
+  auto issue = [&](int p) {
+    const KTile<__nv_bfloat16> k = k_tile(p, x, h, ctx, E, H);
+    if (k.ctx) griddep_wait();  // ctx comes from the attention launch
+    __nv_bfloat16* as = smem + (p % STAGES) * Sh::kStage;
+    issue_inputs(as, k, r0, rows, Sh::kRows, Sh::kPitchA, tid, Sh::kThreads);
+    issue_weights(as + Sh::kRows * Sh::kPitchA, w, k, j0, Sh::kUnits,
+                  Sh::kPitchW, H, tid, Sh::kThreads);
+  };
+
+  float acc[MT][4][4];  // the current chunk's sums, from zero
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int g = 0; g < 4; ++g)
+      acc[mt][g][0] = acc[mt][g][1] = acc[mt][g][2] = acc[mt][g][3] = 0.f;
+
+  float tot_in[MT][4][4];  // the input side's running sums
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int g = 0; g < 4; ++g)
+      tot_in[mt][g][0] = tot_in[mt][g][1] = tot_in[mt][g][2] =
+          tot_in[mt][g][3] = 0.f;
+
+  // One tile: the pipeline step, this warp's products into acc, and at a
+  // chunk's end acc into its side's running sums.
+  auto run = [&](int p, ChunkWalk& walk, bool h_side) {
+    cp_async_wait<STAGES - 2>();  // position p
+    __syncthreads();              // and every thread is past p - 1
+    if (p + STAGES - 1 < n) issue(p + STAGES - 1);
+    cp_async_commit();
+    if (wrow >= rows) return;  // warp-uniform: every row past B
+    const __nv_bfloat16* as = smem + (p % STAGES) * Sh::kStage;
+    const __nv_bfloat16* ws = as + Sh::kRows * Sh::kPitchA;
+#pragma unroll
+    for (int ks = 0; ks < kChunk; ks += 16) {
+      uint32_t bf[4][2];
+      load_b_frags(bf, ws, Sh::kPitchW, Sh::kUnits, wn * 8, ks, lane);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        if (wrow + 16 * mt >= rows) break;  // warp-uniform
+        uint32_t a[4];
+        load_a_frag(a, as, Sh::kPitchA, wrow + 16 * mt, ks, lane);
+#pragma unroll
+        for (int g = 0; g < 4; ++g)
+          mma_bf16(acc[mt][g], a, bf[g][0], bf[g][1]);
+      }
+    }
+    if (walk.last(p)) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int g = 0; g < 4; ++g)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            if (h_side) {
+              float* t = tot_h + ((mt * 4 + g) * 4 + e) * Sh::kThreads + tid;
+              *t = __fadd_rn(*t, acc[mt][g][e]);
+            } else {
+              tot_in[mt][g][e] = __fadd_rn(tot_in[mt][g][e], acc[mt][g][e]);
+            }
+            acc[mt][g][e] = 0.f;
+          }
+    }
+  };
+
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < n) issue(s);
+    cp_async_commit();
+  }
+  ChunkWalk h_walk(hs), in_walk(is);
+  for (int p = 0; p < hs.n; ++p) run(p, h_walk, true);
+  for (int p = hs.n; p < n; ++p) run(p, in_walk, false);
+
+  // A thread holds rows lane / 4 and lane / 4 + 8 of each m16 tile, units
+  // 2 (lane % 4) and + 1 of the warp's 8, all four gates.
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = wrow + 16 * mt + (lane >> 2) + 8 * half;
+      if (r >= rows) continue;
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int j = j0 + wn * 8 + 2 * (lane & 3) + u;
+        float gin[4], gh[4], b[4];
+#pragma unroll
+        for (int g = 0; g < 4; ++g) {
+          gin[g] = tot_in[mt][g][2 * half + u];
+          gh[g] = tot_h[((mt * 4 + g) * 4 + 2 * half + u) * Sh::kThreads +
+                        tid];
+          b[g] = __bfloat162float(bias[g * H + j]);
+        }
+        const size_t idx = (size_t)(r0 + r) * H + j;
+        lstm_bf16(gin, gh, b, __bfloat162float(c[idx]), c_out + idx,
+                  h_out + idx);
+      }
+    }
+}
+
+// ---------------------------------------------------------------------------
+// Launching.  The wrapper's gate_geometry picks the variant: 0 =
+// gate_kernel<S> (the stream), 1 = gate_tile_kernel<64> (float32) or
+// gate_mma_kernel (bfloat16), 2 = gate_tile_kernel<32> (float32).
+
+struct GateLaunch {
+  const void* kernel;
+  int units, rows, threads, cluster;
+  size_t smem;
+};
+
+template <typename S>
+static bool gate_launch_shape(int variant, int E, int H, GateLaunch* out);
+
+template <>
+bool gate_launch_shape<float>(int variant, int, int, GateLaunch* out) {
+  if (variant == 0) {
+    using Sh = StreamShape<float>;
+    *out = {(const void*)gate_kernel<float>, Sh::kUnits, Sh::kRows,
+            Sh::kThreads, Sh::kCluster, stream_smem_bytes<float>()};
+    return true;
+  }
+  if (variant == 1) {
+    *out = {(const void*)gate_tile_kernel<kTileRows>, kTileUnits,
+            kTileRows, TileShape<kTileRows>::kThreads, 1,
+            tile_smem_bytes<kTileRows>()};
+    return true;
+  }
+  if (variant == 2) {
+    *out = {(const void*)gate_tile_kernel<kTileRowsMid>, kTileUnits,
+            kTileRowsMid, TileShape<kTileRowsMid>::kThreads, 1,
+            tile_smem_bytes<kTileRowsMid>()};
+    return true;
+  }
+  return false;
+}
+
+template <>
+bool gate_launch_shape<__nv_bfloat16>(int variant, int, int,
+                                      GateLaunch* out) {
+  if (variant == 0) {
+    using Sh = StreamShape<__nv_bfloat16>;
+    *out = {(const void*)gate_kernel<__nv_bfloat16>, Sh::kUnits, Sh::kRows,
+            Sh::kThreads, Sh::kCluster, stream_smem_bytes<__nv_bfloat16>()};
+    return true;
+  }
+  if (variant == 1) {
+    *out = {(const void*)gate_mma_kernel<kMmaWarpsM, kMmaWarpsN, kMmaMt,
+                                         kMmaStages>,
+            MmaTile::kUnits, MmaTile::kRows, MmaTile::kThreads, 1,
+            MmaTile::kSmem};
+    return true;
+  }
+  return false;
+}
+
+// Let a gate kernel take `bytes` of dynamic shared memory (once per kernel
+// and size).
+static cudaError_t prepare_gate(const void* kernel, size_t bytes) {
+  static std::mutex mu;
+  static const void* kernels[8] = {};
+  static size_t opted[8] = {};
+  std::lock_guard<std::mutex> lock(mu);
+  int i = 0;
+  while (i < 8 && kernels[i] != nullptr && kernels[i] != kernel) ++i;
+  if (i == 8) return cudaErrorInvalidValue;
+  kernels[i] = kernel;
+  size_t granted = opted[i];
+  const cudaError_t err = opt_in_shared(kernel, bytes, &granted);
+  opted[i] = granted;
+  return err;
+}
+
+// The launch configuration of gate kernel g for B rows at width H: its
+// grid, its cluster (the stream's) and, with pdl, programmatic dependent
+// launch on the attention launch before it.  attr holds the attributes.
+static cudaLaunchConfig_t gate_config(const GateLaunch& g, int B, int H,
+                                      cudaStream_t st, bool pdl,
+                                      cudaLaunchAttribute (&attr)[2]) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(kGateCluster * (H / kGateUnits));
-  cfg.blockDim = dim3(kGateThreads);
-  cfg.dynamicSmemBytes = smem_bytes;
-  cfg.stream = stream;
+  cfg.gridDim = dim3(H / g.units * g.cluster, (B + g.rows - 1) / g.rows);
+  cfg.blockDim = dim3(g.threads);
+  cfg.dynamicSmemBytes = g.smem;
+  cfg.stream = st;
+  int n = 0;
+  if (g.cluster > 1) {
+    attr[n].id = cudaLaunchAttributeClusterDimension;
+    attr[n].val.clusterDim.x = g.cluster;
+    attr[n].val.clusterDim.y = 1;
+    attr[n].val.clusterDim.z = 1;
+    ++n;
+  }
+  if (pdl) {
+    attr[n].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attr[n].val.programmaticStreamSerializationAllowed = 1;
+    ++n;
+  }
+  cfg.attrs = attr;
+  cfg.numAttrs = n;
   return cfg;
 }
 
-// ctx (B, H) is scratch the caller allocates.  attn_smem and gate_smem are
-// the shared-memory sizes the wrapper's geometry computed; a disagreement
-// with this file's layout is refused (cudaErrorInvalidValue).
+// ctx (B, H) is scratch the caller allocates.  attn_smem, gate_variant and
+// gate_smem are what the wrapper's geometry computed; a variant that does
+// not exist or a shared-memory size that disagrees with this file's layout
+// is refused (cudaErrorInvalidValue).
 template <typename S>
 static int decode_cell_launch(const S* x, const S* c, const S* h, const S* q,
                               const S* pm, const S* mem, const float* v,
                               const S* w, const S* bias, S* ctx, S* c_out,
                               S* h_out, int B, int T, int E, int A, int H,
-                              int attn_smem, int gate_smem, void* stream) {
+                              int attn_smem, int gate_variant, int gate_smem,
+                              void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  constexpr int kStep = kGateCluster * gate_share_step<S>();
-  if (E % kStep != 0 || H % kStep != 0 ||
-      (size_t)gate_smem != gate_smem_bytes<S>(E, H))
+  GateLaunch g;
+  if (E % kChunk != 0 || H % kChunk != 0 ||
+      !gate_launch_shape<S>(gate_variant, E, H, &g) ||
+      (size_t)gate_smem != g.smem || H % g.units != 0)
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = prepare_gate<S>((size_t)gate_smem);
+  cudaError_t err = prepare_gate(g.kernel, g.smem);
   if (err != cudaSuccess) return (int)err;
   err = launch_attention<S>(q, pm, mem, v, ctx, nullptr, B, T, A, H,
                             (size_t)attn_smem, st);
   if (err != cudaSuccess) return (int)err;
-  cudaLaunchConfig_t cfg = gate_config(H, (size_t)gate_smem, st);
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[0].val.programmaticStreamSerializationAllowed = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, gate_kernel<S>, x, (const S*)ctx, h, w,
-                           bias, c, c_out, h_out, B, E, H,
-                           gate_slice_rows(E, H));
+  cudaLaunchAttribute attr[2];
+  const cudaLaunchConfig_t cfg = gate_config(g, B, H, st, true, attr);
+  const S* ctx_in = ctx;
+  void* args[] = {(void*)&x,    (void*)&ctx_in, (void*)&h,     (void*)&w,
+                  (void*)&bias, (void*)&c,      (void*)&c_out, (void*)&h_out,
+                  (void*)&B,    (void*)&E,      (void*)&H};
+  err = cudaLaunchKernelExC(&cfg, g.kernel, args);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -551,10 +1017,11 @@ extern "C" int decode_cell_forward(
     const float* x, const float* c, const float* h, const float* q,
     const float* pm, const float* mem, const float* v, const float* w,
     const float* bias, float* ctx, float* c_out, float* h_out, int B, int T,
-    int E, int A, int H, int attn_smem, int gate_smem, void* stream) {
+    int E, int A, int H, int attn_smem, int gate_variant, int gate_smem,
+    void* stream) {
   return decode_cell_launch<float>(x, c, h, q, pm, mem, v, w, bias, ctx,
                                    c_out, h_out, B, T, E, A, H, attn_smem,
-                                   gate_smem, stream);
+                                   gate_variant, gate_smem, stream);
 }
 
 extern "C" int decode_cell_forward_bf16(
@@ -563,27 +1030,26 @@ extern "C" int decode_cell_forward_bf16(
     const __nv_bfloat16* mem, const float* v, const __nv_bfloat16* w,
     const __nv_bfloat16* bias, __nv_bfloat16* ctx, __nv_bfloat16* c_out,
     __nv_bfloat16* h_out, int B, int T, int E, int A, int H, int attn_smem,
-    int gate_smem, void* stream) {
-  return decode_cell_launch<__nv_bfloat16>(x, c, h, q, pm, mem, v, w, bias,
-                                           ctx, c_out, h_out, B, T, E, A, H,
-                                           attn_smem, gate_smem, stream);
+    int gate_variant, int gate_smem, void* stream) {
+  return decode_cell_launch<__nv_bfloat16>(
+      x, c, h, q, pm, mem, v, w, bias, ctx, c_out, h_out, B, T, E, A, H,
+      attn_smem, gate_variant, gate_smem, stream);
 }
 
-// How many gate clusters the card can hold at once (all H / kGateUnits of
-// them in one wave is the design's premise) for storage of elem_bytes (4
-// float32, 2 bfloat16); -> CUDA error code.
-template <typename S>
-static int gate_max_clusters(int E, int H, int* out) {
-  const size_t smem = gate_smem_bytes<S>(E, H);
-  cudaError_t err = prepare_gate<S>(smem);
-  if (err != cudaSuccess) return (int)err;
-  cudaLaunchConfig_t cfg = gate_config(H, smem, nullptr);
-  return (int)cudaOccupancyMaxActiveClusters(out, gate_kernel<S>, &cfg);
-}
-
+// How many clusters of gate variant `variant` (the stream, 0) the card
+// holds at once, for storage of elem_bytes (4 float32, 2 bfloat16) at
+// widths E, H; -> CUDA error code.
 extern "C" int decode_cell_gate_max_clusters(int E, int H, int elem_bytes,
-                                             int* out) {
-  if (elem_bytes == 2) return gate_max_clusters<__nv_bfloat16>(E, H, out);
-  if (elem_bytes == 4) return gate_max_clusters<float>(E, H, out);
-  return (int)cudaErrorInvalidValue;
+                                             int variant, int* out) {
+  GateLaunch g;
+  const bool ok = elem_bytes == 4
+                      ? gate_launch_shape<float>(variant, E, H, &g)
+                      : elem_bytes == 2 && gate_launch_shape<__nv_bfloat16>(
+                                               variant, E, H, &g);
+  if (!ok || g.cluster == 1) return (int)cudaErrorInvalidValue;
+  cudaError_t err = prepare_gate(g.kernel, g.smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr[2];
+  const cudaLaunchConfig_t cfg = gate_config(g, 8, H, nullptr, false, attr);
+  return (int)cudaOccupancyMaxActiveClusters(out, g.kernel, &cfg);
 }

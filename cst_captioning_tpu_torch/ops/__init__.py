@@ -21,6 +21,14 @@ def launch_counts_by_dtype() -> dict:
             for dtype, n in fn.launches_by_dtype.items()}
 
 
+def gate_launch_counts() -> dict:
+    """``{"fused_decode_cell/<gate kernel>": launches}``: K2's gate
+    launches per gate kernel (``gate_kernel``, ``gate_tile_kernel``,
+    ``gate_mma_kernel``)."""
+    return {f"{fused_decode_cell.__name__}/{name}": n
+            for name, n in fused_decode_cell.launches_by_gate.items()}
+
+
 def kernel_state() -> dict:
     """Kernel-library builds and loads, and launches: what a flight
     recorder's blackbox carries about the kernels."""
@@ -32,3 +40,5 @@ def reset_launch_counts() -> None:
     for fn in KERNEL_WRAPPERS:
         fn.launches = 0
         fn.launches_by_dtype = dict.fromkeys(fn.launches_by_dtype, 0)
+    fused_decode_cell.launches_by_gate = dict.fromkeys(
+        fused_decode_cell.launches_by_gate, 0)

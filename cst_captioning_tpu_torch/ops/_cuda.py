@@ -45,9 +45,9 @@ SIGNATURES = {
         "additive_attention_forward": [_P] * 6 + [_I] * 5 + [_P],
         "additive_attention_forward_bf16": [_P] * 6 + [_I] * 5 + [_P]},
     "decode_cell": {
-        "decode_cell_forward": [_P] * 12 + [_I] * 7 + [_P],
-        "decode_cell_forward_bf16": [_P] * 12 + [_I] * 7 + [_P],
-        "decode_cell_gate_max_clusters": [_I, _I, _I,
+        "decode_cell_forward": [_P] * 12 + [_I] * 8 + [_P],
+        "decode_cell_forward_bf16": [_P] * 12 + [_I] * 8 + [_P],
+        "decode_cell_gate_max_clusters": [_I, _I, _I, _I,
                                           ctypes.POINTER(ctypes.c_int)]},
 }
 

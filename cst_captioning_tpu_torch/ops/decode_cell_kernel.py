@@ -20,11 +20,16 @@ first, recurrent rows for ``h`` after), gate columns ``i | f | g | o``;
 weights in exactly this layout, so binding a step copies nothing: the
 gate kernel reads ``w`` as it lies.
 
-``gate_geometry`` is the gate kernel's launch geometry (column tiles of
-``GATE_UNITS`` hidden units, each a cluster of ``GATE_CLUSTER`` blocks
-that split K, batch rows in groups of ``GATE_ROWS``) in plain Python: the
-wrapper computes it before it touches CUDA and raises ``ValueError`` for
-a shape the kernel does not take.
+``gate_geometry`` picks the gate kernel for (B, E, H, storage) and
+computes its launch geometry in plain Python, before the wrapper touches
+CUDA; it raises ``ValueError`` for a shape no gate kernel takes.  Three
+gate kernels (``csrc/decode_cell.cu``), one summation tree:
+``gate_kernel`` (both storage dtypes, B <= ``GATE_STREAM_MAX_B``: the
+weight stream, K split by chunks over a cluster of blocks),
+``gate_tile_kernel`` (float32, larger B: register tiles over rows) and
+``gate_mma_kernel`` (bfloat16, larger B: the tensor cores).  K's rows go
+in chunks of ``GATE_CHUNK`` (E and H must be multiples of it), and a
+row's outputs have the same bits whichever kernel runs it.
 
 Storage: float32, or bfloat16 as the reference kernel runs under
 ``--use_bfloat16`` (``pallas_decode_cell.py``): x, c, h, q, the
@@ -32,10 +37,9 @@ encodings, ``w`` and ``bias`` in bfloat16, ``score_v`` float32.  The
 attention runs in float32 and its context is rounded to bfloat16; the
 gates round where the reference's ops round: the h-side and input-side
 products (each summed in float32) to bfloat16, ``+ b``, ``gh + gi``, each
-activation, ``f*c``, ``i*g``, ``c'``, ``tanh(c')`` and ``h'``.  A 16-byte
-copy carries 8 bfloat16 values, so each K slice must be a multiple of 8
-rows (``gate_geometry``'s ``elem_bytes``).  ``make_fused_decode_step``
-prepares the weights in the model's compute dtype once per binding.
+activation, ``f*c``, ``i*g``, ``c'``, ``tanh(c')`` and ``h'``.
+``make_fused_decode_step`` prepares the weights in the model's compute
+dtype once per binding.
 """
 
 from __future__ import annotations
@@ -50,16 +54,37 @@ from . import _cuda
 from .attention_kernel import (DTYPE_NAMES, SMEM_LIMIT,
                                additive_attention_plain, attention_geometry)
 
-#: The gate kernel's constants (``csrc/decode_cell.cu``): blocks a column
-#: tile (a thread-block cluster; one K slice each), hidden units a tile,
-#: rows of K a warp takes at a time, warps a block, batch rows a group,
-#: batch rows a pair exchange of block sums.
-GATE_CLUSTER = 2
-GATE_UNITS = 8
-GATE_SUB = 4
-GATE_WARPS = 8
-GATE_ROWS = 8
-GATE_CHUNK_ROWS = 64
+#: Rows of K a tile, and chunks of a side of the summation tree
+#: (``csrc/decode_cell.cu``).
+GATE_CHUNK = 32
+GATE_TREE_CHUNKS = 8
+#: ``gate_kernel`` (B <= GATE_STREAM_MAX_B), by storage bytes: blocks a
+#: cluster, hidden units a cluster's column tile, batch rows a block
+#: (bfloat16: an m16 tile), tiles in flight a group.  A block has a group
+#: of GATE_STREAM_GROUP threads for each of its chunks of the tree
+#: (GATE_TREE_CHUNKS / cluster).
+GATE_STREAM_GROUP = 64
+GATE_STREAM_CLUSTER = {4: 2, 2: 4}
+GATE_STREAM_UNITS = {4: 8, 2: 16}
+GATE_STREAM_ROWS = {4: 8, 2: 16}
+GATE_STREAM_SLOTS = {4: 3, 2: 4}
+GATE_STREAM_MAX_B = 128
+#: ``gate_tile_kernel`` (float32, larger B): batch rows a block (32 up to
+#: GATE_TILE_MID_MAX_B rows, to fill the card; 64 above), hidden units a
+#: block, tiles in flight by rows, floats a row of a tile's inputs.  A
+#: thread holds 4 rows x 2 units.
+GATE_TILE_ROWS = 64
+GATE_TILE_ROWS_MID = 32
+GATE_TILE_MID_MAX_B = 640
+GATE_TILE_UNITS = 32
+GATE_TILE_STAGES = {64: 4, 32: 2}
+GATE_TILE_PITCH = 36
+#: ``gate_mma_kernel`` (bfloat16, larger B): warps over rows, warps over
+#: units, m16 tiles a warp, tiles in flight; bf16 padding a row.
+GATE_MMA = (4, 2, 2, 3)
+GATE_MMA_PAD = 8
+#: The gate kernels' CUDA symbols, as a profiler names them.
+GATE_KERNELS = ("gate_kernel", "gate_tile_kernel", "gate_mma_kernel")
 #: The C launcher of each storage dtype (``csrc/decode_cell.cu``).
 LAUNCHERS = {torch.float32: "decode_cell_forward",
              torch.bfloat16: "decode_cell_forward_bf16"}
@@ -67,45 +92,64 @@ LAUNCHERS = {torch.float32: "decode_cell_forward",
 
 @functools.lru_cache(maxsize=None)
 def gate_geometry(b: int, e: int, h: int, elem_bytes: int = 4) -> dict:
-    """Launch geometry of ``gate_kernel`` for B rows, input width E and
-    hidden width H, stored in ``elem_bytes``-byte values (4: float32, 2:
-    bfloat16): ``cluster`` (blocks a tile, one K slice each),
-    ``column_tiles``, ``blocks``, ``k_rows`` (the K rows a block holds:
-    its share of each of the x, h and ctx segments), ``row_groups`` and
-    ``smem_bytes`` a block (the warps' partial sums, the weight slice, two
-    row groups' inputs, the block sums its peer sends it; in bfloat16 the
-    sums of the h side and of the input side are kept apart, since each
-    rounds on its own).  Raises ``ValueError`` for a shape the kernel
-    does not take: each block's share of a segment must be whole 16-byte
-    copies (4 float32 or 8 bfloat16 values) and whole warp steps of
-    ``GATE_SUB`` rows, so E and H must be multiples of 8 in float32 and
-    of 16 in bfloat16, and the slice must fit in a block's shared
-    memory."""
+    """The gate kernel for B rows, input width E and hidden width H,
+    stored in ``elem_bytes``-byte values (4: float32, 2: bfloat16), and
+    its launch geometry: ``kernel`` (its CUDA symbol), ``variant`` (the
+    launcher's number for it), ``cluster`` (blocks that split a column
+    tile's K), ``units`` a column tile and ``rows`` a block,
+    ``threads``, ``column_tiles`` x ``row_tiles`` x ``cluster`` =
+    ``blocks``, ``k_tiles`` (of ``GATE_CHUNK`` rows of K) and
+    ``smem_bytes`` a block.  Raises ``ValueError`` for a shape no gate
+    kernel takes: E or H not a multiple of ``GATE_CHUNK``."""
     if elem_bytes not in (2, 4):
         raise ValueError(f"gate kernel: {elem_bytes}-byte storage; takes "
                          "float32 (4) or bfloat16 (2)")
     if min(b, e, h) < 1:
         raise ValueError(f"gate kernel: empty shape B={b} E={e} H={h}")
-    step = GATE_CLUSTER * max(GATE_SUB, 16 // elem_bytes)
-    if e % step or h % step:
+    if e % GATE_CHUNK or h % GATE_CHUNK:
         raise ValueError(f"gate kernel: E and H must be multiples of "
-                         f"{step}; got E={e}, H={h}")
-    k_rows = (e + 2 * h) // GATE_CLUSTER
-    cols = 4 * GATE_UNITS
-    parts = 1 if elem_bytes == 4 else 2
-    # Partial sums (float32, per part), weights and two input buffers
-    # (storage type), and the peer's sums of this rank's units (float32,
-    # per part: GATE_CLUSTER x GATE_CHUNK_ROWS x cols / cluster).
-    smem = (4 * parts * (GATE_WARPS * GATE_ROWS + GATE_CHUNK_ROWS) * cols
-            + elem_bytes * (k_rows * cols + 2 * GATE_ROWS * k_rows))
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"gate kernel: E={e}, H={h} puts {k_rows} rows of "
-                         f"K in a block, {smem} bytes of shared memory, "
-                         f"over the {SMEM_LIMIT} an H100 block has")
-    tiles = h // GATE_UNITS
-    return {"cluster": GATE_CLUSTER, "column_tiles": tiles,
-            "blocks": GATE_CLUSTER * tiles, "k_rows": k_rows,
-            "row_groups": -(-b // GATE_ROWS), "smem_bytes": smem}
+                         f"{GATE_CHUNK}; got E={e}, H={h}")
+    k_tiles = (e + 2 * h) // GATE_CHUNK
+    cluster = 1
+    if b <= GATE_STREAM_MAX_B:
+        kernel, variant = "gate_kernel", 0
+        cluster = GATE_STREAM_CLUSTER[elem_bytes]
+        units, rows = GATE_STREAM_UNITS[elem_bytes], GATE_STREAM_ROWS[elem_bytes]
+        groups = GATE_TREE_CHUNKS // cluster
+        threads = groups * GATE_STREAM_GROUP
+        cols = 4 * units
+        # Each group's slots (a tile's weights, then its inputs; bfloat16
+        # rows padded for ldmatrix), in the storage dtype; then the tree's
+        # chunk sums (float32) of this block's rows and of the units it
+        # finishes (units / cluster of each gate).
+        pad = GATE_MMA_PAD if elem_bytes == 2 else 0
+        smem = (elem_bytes * groups * GATE_STREAM_SLOTS[elem_bytes]
+                * (GATE_CHUNK * (cols + pad) + rows * (GATE_CHUNK + pad))
+                + 4 * GATE_TREE_CHUNKS * rows * 4 * (units // cluster))
+    elif elem_bytes == 4:
+        mid = b <= GATE_TILE_MID_MAX_B
+        kernel, variant = "gate_tile_kernel", 2 if mid else 1
+        units = GATE_TILE_UNITS
+        rows = GATE_TILE_ROWS_MID if mid else GATE_TILE_ROWS
+        threads = (rows // 4) * (units // 2)
+        smem = 4 * GATE_TILE_STAGES[rows] * (rows * GATE_TILE_PITCH
+                                             + GATE_CHUNK * 4 * units)
+    else:
+        warps_m, warps_n, m_tiles, stages = GATE_MMA
+        kernel, variant = "gate_mma_kernel", 1
+        units, rows = 8 * warps_n, 16 * m_tiles * warps_m
+        threads = 32 * warps_m * warps_n
+        # The ring (a tile's inputs and weights, rows padded; bfloat16),
+        # then the h side's running sums (float32, 16 a thread an m16 tile).
+        smem = (2 * stages * (rows * (GATE_CHUNK + GATE_MMA_PAD)
+                              + GATE_CHUNK * (4 * units + GATE_MMA_PAD))
+                + 4 * 16 * m_tiles * threads)
+    tiles, row_tiles = h // units, -(-b // rows)
+    return {"kernel": kernel, "variant": variant, "cluster": cluster,
+            "units": units, "rows": rows, "threads": threads,
+            "column_tiles": tiles, "row_tiles": row_tiles,
+            "blocks": tiles * row_tiles * cluster, "k_tiles": k_tiles,
+            "smem_bytes": smem}
 
 
 def decode_cell_plain(x, c, h, q, proj_mem, memory, score_v, w, bias
@@ -134,7 +178,9 @@ def fused_decode_cell(x, c, h, q, proj_mem, memory, score_v, w, bias
     with a float32 ``score_v``).  On CUDA tensors: the two launches of
     the K2 kernel (attention; gate product with the state update, started
     early by programmatic dependent launch), each counted in
-    ``fused_decode_cell.launches``; on CPU tensors: the plain version.
+    ``fused_decode_cell.launches`` (the gate launch also in
+    ``launches_by_gate`` under the kernel ``gate_geometry`` picked); on
+    CPU tensors: the plain version.
     Forward only on both devices: raises ``RuntimeError`` in grad mode
     when an input requires grad, instead of returning outputs that
     autograd would silently treat as constants."""
@@ -176,17 +222,20 @@ def fused_decode_cell(x, c, h, q, proj_mem, memory, score_v, w, bias
             proj_mem.data_ptr(), memory.data_ptr(), score_v.data_ptr(),
             w.data_ptr(), bias.data_ptr(), ctx.data_ptr(), new_c.data_ptr(),
             new_h.data_ptr(), b, t, e, a, hid, attn["smem_bytes"],
-            gate["smem_bytes"], torch.cuda.current_stream(dev).cuda_stream)
+            gate["variant"], gate["smem_bytes"],
+            torch.cuda.current_stream(dev).cuda_stream)
     _cuda.check(rc, what)
     fused_decode_cell.launches += 2     # attention; gates + update
     fused_decode_cell.launches_by_dtype[DTYPE_NAMES[store]] += 2
+    fused_decode_cell.launches_by_gate[gate["kernel"]] += 1
     return new_c, new_h
 
 
 #: Kernel launches since the last reset (two per decode step), in all and
-#: per storage dtype.
+#: per storage dtype; and the gate launches per gate kernel.
 fused_decode_cell.launches = 0
 fused_decode_cell.launches_by_dtype = dict.fromkeys(DTYPE_NAMES.values(), 0)
+fused_decode_cell.launches_by_gate = dict.fromkeys(GATE_KERNELS, 0)
 
 
 def fused_decode_supported(model) -> Tuple[bool, str]:

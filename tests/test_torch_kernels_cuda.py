@@ -68,15 +68,19 @@ def test_attention_kernel_matches_plain(cuda, b):
     assert (w - ref_w).abs().max().item() <= TOL
 
 
-@pytest.mark.parametrize("b", [1, 3, 8, 40, 64, 100, 320])
+@pytest.mark.parametrize("b", [1, 3, 8, 40, 64, 100, 320, 1344])
 def test_decode_cell_kernel_matches_plain(cuda, b):
-    """B = 64, 100 and 320 take several row groups of the gate kernel
-    (320: the beam-5 eval at 64 videos a batch)."""
+    """B up to 128 take the weight stream in several row tiles; 320 (the
+    beam-5 eval at 64 videos a batch) and 1344 (the CST rollout) the
+    register tiles.  The gate launch is counted under its kernel."""
     args = [t.to(cuda) for t in _cell_inputs(b, b)]
     before = k2.fused_decode_cell.launches
+    gate = k2.gate_geometry(b, E, H)["kernel"]
+    gates = k2.fused_decode_cell.launches_by_gate[gate]
     c, h = k2.fused_decode_cell(*args)
     torch.cuda.synchronize()
     assert k2.fused_decode_cell.launches == before + 2
+    assert k2.fused_decode_cell.launches_by_gate[gate] == gates + 1
     ref_c, ref_h = k2.decode_cell_plain(*args)
     assert (c - ref_c).abs().max().item() <= TOL
     assert (h - ref_h).abs().max().item() <= TOL
@@ -148,16 +152,17 @@ def test_cuda_wrappers_refuse_what_the_kernels_do_not_take(cuda):
 @pytest.mark.parametrize("elem_bytes", [4, 2], ids=["float32", "bfloat16"])
 def test_gate_clusters_fit_in_one_wave(cuda, elem_bytes):
     """The card holds every gate cluster of the serving width at once (the
-    weight stream's premise; a second wave would read its weights late),
-    in either storage dtype."""
+    weight stream's 16 clusters of 8 blocks; a second wave would read its
+    weights late), in either storage dtype."""
     import ctypes
 
     from cst_captioning_tpu_torch.ops import _cuda
 
     n = ctypes.c_int(0)
     fn = _cuda.load("decode_cell", "decode_cell_gate_max_clusters")
-    assert fn(E, H, elem_bytes, ctypes.byref(n)) == 0
-    assert n.value >= k2.gate_geometry(8, E, H, elem_bytes)["column_tiles"]
+    gate = k2.gate_geometry(8, E, H, elem_bytes)
+    assert fn(E, H, elem_bytes, gate["variant"], ctypes.byref(n)) == 0
+    assert n.value >= gate["column_tiles"]
 
 
 def test_served_greedy_captions_equal_offline_on_card(cuda):
@@ -372,7 +377,7 @@ def test_attention_kernel_bf16_matches_plain(cuda, b):
             _bf16_ulp(want)
 
 
-@pytest.mark.parametrize("b", [1, 3, 8, 40, 64, 100, 1344])
+@pytest.mark.parametrize("b", [1, 3, 8, 40, 64, 100, 320, 1344])
 def test_decode_cell_kernel_bf16_matches_plain(cuda, b):
     """K2 in bfloat16 storage against its plain version on the card,
     compared in bfloat16: c' and h' within two bfloat16 ulps of their
@@ -460,3 +465,30 @@ def test_cuda_wrappers_refuse_mixed_storage(cuda):
     args[7] = args[7].float()
     with pytest.raises(TypeError, match="w is torch.float32"):
         k2.fused_decode_cell(*args)
+
+
+def _rows_of(args, idx, per_row=6):
+    return [a[idx].contiguous() if i < per_row else a
+            for i, a in enumerate(args)]
+
+
+@pytest.mark.parametrize("storage", ["float32", "bfloat16"])
+def test_decode_cell_is_batch_invariant_at_the_rollout_batch(cuda, storage):
+    """At the CST rollout's 1344 rows (the register or tensor-core tiles)
+    a row's outputs have the same bits moved to another index, alone (the
+    weight stream), and inside batches of 8, 40 (the stream) and 320 (the
+    tiles again): one summation tree for every batch and every kernel."""
+    args = [a.to(cuda) for a in _cell_inputs(1344, 13)]
+    if storage == "bfloat16":
+        args = _bf16(args, keep_float=(6,))
+    fn = k2.fused_decode_cell
+    full = fn(*args)
+    perm = torch.roll(torch.arange(1344, device=cuda), 517)
+    for out, moved in zip(full, fn(*_rows_of(args, perm))):
+        assert torch.equal(out[perm], moved)
+    for r in (0, 700, 1343):
+        for out, alone in zip(full, fn(*_rows_of(args, slice(r, r + 1)))):
+            assert torch.equal(out[r:r + 1], alone)
+    for lo, n in ((0, 8), (1336, 8), (600, 40), (1000, 320)):
+        for out, part in zip(full, fn(*_rows_of(args, slice(lo, lo + n)))):
+            assert torch.equal(out[lo:lo + n], part)
