@@ -63,6 +63,16 @@ val files through ``--test_*``.  ``--start_from DIR`` starts CST from
 reference chain's WXE stage through ``export_for_torch.py checkpoint``)
 in place of this chain's WXE stage.
 
+``--xe_start_from DIR`` and ``--wxe_start_from DIR`` start XE or WXE
+from ``DIR`` in the same way (WXE in place of this chain's XE stage):
+the best step's weights, the optimizer state fresh.  The ``init`` stage
+writes the model the XE stage would start from, the port's
+initialization at ``--seed`` (``weights.init_like_flax_``), as step 0
+of ``OUT_DIR/checkpoints/init``: a train-CLI directory that
+``--start_from`` of either stage (here ``--xe_start_from``) and the
+reference's ``import_from_torch.py`` read, so that both packages' XE
+can start from one parameter tree.
+
 ``--seed N`` is every train stage's ``--seed`` (default 123, the
 reference chain's).  Another seed runs into ``OUT_DIR/seed<N>``, so the
 five-seed spread of one CST stage is five commands with one
@@ -70,6 +80,8 @@ five-seed spread of one CST stage is five commands with one
 
     python -m cst_captioning_tpu_torch.tools.stage_chain --out_dir runs/c \\
         --stages cst,eval --start_from runs/wxe --seed 1
+    python -m cst_captioning_tpu_torch.tools.stage_chain --out_dir runs/w \\
+        --stages wxe --wxe_start_from runs/xe --seed 1
 """
 
 from __future__ import annotations
@@ -80,7 +92,7 @@ import os
 import subprocess
 import sys
 import time
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 from ..data.dataset import split_files
 from ..resilience import exitcodes
@@ -160,7 +172,12 @@ def stage_argv(out_dir: str, xe_patience: int = 25,
                cst_device_rewards: int = 1, use_bfloat16: int = 0,
                data_dir: Optional[str] = None,
                start_from: Optional[str] = None,
-               seed: int = DEFAULT_SEED) -> dict:
+               seed: int = DEFAULT_SEED,
+               xe_start_from: Optional[str] = None,
+               wxe_start_from: Optional[str] = None) -> dict:
+    """Each stage's train-CLI argv; ``start_from``, ``xe_start_from`` and
+    ``wxe_start_from`` start CST, XE and WXE from another directory than
+    the one this chain writes before them (XE: from scratch)."""
     if data_dir:
         data = data_argv(data_dir, "train") + data_argv(data_dir, "val")
     else:
@@ -190,11 +207,13 @@ def stage_argv(out_dir: str, xe_patience: int = 25,
         "xe": common + sched + [
             "--max_patience", str(xe_patience),
             "--min_epochs", "30", "--max_epochs", "100",
-            "--learning_rate", "2e-4", "--checkpoint_path", f"{ck}/xe"],
+            "--learning_rate", "2e-4", "--checkpoint_path", f"{ck}/xe"]
+        + (["--start_from", xe_start_from] if xe_start_from else []),
         "wxe": common + sched + [
             "--max_patience", "25", "--use_consensus_weights", "1",
             "--max_epochs", "20",
-            "--learning_rate", "1e-4", "--start_from", f"{ck}/xe",
+            "--learning_rate", "1e-4",
+            "--start_from", wxe_start_from or f"{ck}/xe",
             "--checkpoint_path", f"{ck}/wxe"],
         "cst": common + [
             "--use_rl", "1", "--rl_baseline", cst_baseline,
@@ -205,6 +224,41 @@ def stage_argv(out_dir: str, xe_patience: int = 25,
             "--start_from", start_from or f"{ck}/wxe",
             "--checkpoint_path", f"{ck}/{cst_dir}"],
     }
+
+
+def write_init(argv: list, directory: str) -> Dict[str, object]:
+    """The model the train CLI builds from ``argv`` before its first step
+    (its splits, ``build_model`` and ``init_like_flax_`` at its
+    ``--seed``), written as step 0 of the train-CLI directory
+    ``directory`` with score 0 and the options in ``infos.json``.  The
+    directory must not hold a checkpoint yet.  Another torch build can
+    draw other numbers from the same seed (the H100 machine's torch 2.11
+    and a CPU build of 2.13 do), so a tree written on one machine is the
+    from-scratch start of the train CLI only on a machine of that build.
+    -> its ``infos.json``."""
+    import torch
+
+    from .. import train
+    from ..training.checkpoint import CheckpointManager
+    from ..training.trainer import build_model, build_splits
+    from ..weights import init_like_flax_
+
+    opt = train.parse_args(list(argv) + ["--device", "cpu"])
+    train_split, _ = build_splits(opt)
+    model = build_model(opt, train_split.vocab.size_with_pad,
+                        train_split.feat_dims, train_split.seq_length)
+    init_like_flax_(model, torch.Generator().manual_seed(opt.seed))
+    mgr = CheckpointManager(directory, max_to_keep=1)
+    if mgr.infos.get("last_step") is not None:
+        raise FileExistsError(f"{directory} already holds checkpoint step "
+                              f"{mgr.infos['last_step']}")
+    opts = {k: v for k, v in vars(opt).items()
+            if isinstance(v, (str, int, float, type(None)))
+            or (isinstance(v, list) and all(isinstance(x, str) for x in v))}
+    mgr.save(0, {"model": model.state_dict(), "step": 0, "score": 0.0,
+                 "best_score": 0.0, "opt": opts}, score=0.0,
+             extra={"opt": opts, "init_seed": opt.seed})
+    return dict(mgr.infos)
 
 
 class EventLog:
@@ -384,7 +438,9 @@ def main(argv=None) -> int:
     p.add_argument("--xe_max_patience", type=int, default=25,
                    help="XE's early-stop patience in epochs (0 = the full "
                         "100 epochs); the reference's chain used 25")
-    p.add_argument("--stages", default="xe,wxe,cst,eval")
+    p.add_argument("--stages", default="xe,wxe,cst,eval",
+                   help="comma list of init, xe, wxe, cst and eval, run "
+                        "in the order given")
     p.add_argument("--cst_baseline", default="scb-sample",
                    choices=("greedy", "scb-sample", "scb-gt"),
                    help="CST's baseline; the reference's chain used "
@@ -407,6 +463,13 @@ def main(argv=None) -> int:
                    help="CST starts from this directory (a train-CLI "
                         "directory or an exported checkpoint) instead of "
                         "this chain's WXE stage")
+    p.add_argument("--xe_start_from", default=None,
+                   help="XE starts from this directory (e.g. the init "
+                        "stage's) instead of from scratch")
+    p.add_argument("--wxe_start_from", default=None,
+                   help="WXE starts from this directory (a train-CLI "
+                        "directory or an exported checkpoint) instead of "
+                        "this chain's XE stage")
     p.add_argument("--wedge_timeout", type=float, default=0.0,
                    help="each train stage's --wedge_timeout (exit 124 and "
                         "a resumed attempt after that many seconds without "
@@ -428,9 +491,17 @@ def main(argv=None) -> int:
     stages = stage_argv(args.out_dir, args.xe_max_patience,
                         args.cst_baseline, args.cst_temperature,
                         args.cst_device_rewards, args.use_bfloat16,
-                        args.data_dir, args.start_from, args.seed)
+                        args.data_dir, args.start_from, args.seed,
+                        args.xe_start_from, args.wxe_start_from)
     results = {}
     for name in args.stages.split(","):
+        if name == "init":
+            init_dir = os.path.join(args.out_dir, "checkpoints", "init")
+            infos = write_init(stages["xe"], init_dir)
+            events.emit("stage_done", tag="init", stage_dir=init_dir)
+            print(f"stage init: the initialization at seed {args.seed} as "
+                  f"step {infos['best_step']} of {init_dir}", flush=True)
+            continue
         if name == "eval":
             results["eval"] = eval_stage(
                 args.out_dir, stages,

@@ -1,9 +1,12 @@
 """``tools/chain_spread.py`` on fixed inputs: both packages'
 ``metrics.jsonl`` formats, the rule of the 10th-12th val records (a
 re-logged step counted once), a run with fewer than 12 val records
-refused, the arms' mean and sample deviation, the three verdicts, the
-beam-5 caption comparison, ``collect``'s manifest and the CLI; and the
-reference chain's recorded CST stage read as its report states it.
+refused, other windows (``--window``), the arms' mean and sample
+deviation, the three verdicts, the verdict paired by seed beside the
+unpaired one and the pairs it refuses, the beam-5 caption comparison,
+``collect``'s manifest and the CLI; the reference chain's recorded CST
+stage read as its report states it; and both committed crossover
+summaries recomputed from their runs.
 """
 
 import json
@@ -216,3 +219,177 @@ def test_the_committed_crossover_summary_is_what_its_runs_give():
                                            for f in beam["files"]))
         assert (got["equal"], got["CIDEr"]) == (beam["equal"],
                                                 beam["CIDEr"]), label
+
+
+def _arm(root, name, ms, n=12, seeds=None):
+    """An arm's runs, ``root/name/seed<N>/metrics.jsonl``, whose
+    ``_ciders`` window averages to each ``m``."""
+    for seed, m in zip(seeds or range(len(ms)), ms):
+        _write_run(root / name / f"seed{seed}" / "metrics.jsonl",
+                   _ciders(m, n))
+    return f"{root}/{name}/seed*"
+
+
+def test_the_window_picks_its_val_records(tmp_path):
+    ciders = [0.0] * 14 + [2.0, 2.2, 2.4, 2.6, 2.8, 3.0]
+    run = _write_run(tmp_path / "m.jsonl", ciders, relog=(16, 320))
+    assert chain_spread.run_mean(str(run), 15, 20) == pytest.approx(
+        2.5, abs=1e-12)
+    assert chain_spread.run_mean(str(run), 20, 20) == 3.0
+    with pytest.raises(ValueError, match=r"20 val record\(s\).*91-100 "
+                                         r"needs at least 100"):
+        chain_spread.run_mean(str(run), 91, 100)
+    assert chain_spread.parse_window("91-100") == (91, 100)
+    for bad in ("12-10", "0-3", "10", "a-b", "10-"):
+        with pytest.raises(Exception, match="FIRST-LAST"):
+            chain_spread.parse_window(bad)
+
+
+def test_the_paired_verdict_where_the_unpaired_cannot_tell(tmp_path):
+    """The seeds move both arms together (the data order): unpaired, a
+    gap of 0.05 under an se of 0.09 is unresolved; paired by seed, the
+    same gap with d's sd 0.005 differs."""
+    base = [2.80, 3.00, 2.90, 2.70, 3.10]
+    seeds = [123, 1, 2, 3, 4]
+    d = [0.050, 0.055, 0.045, 0.050, 0.050]
+    out = chain_spread.summarize(
+        [("P", _arm(tmp_path, "P", [b + x for b, x in zip(base, d)],
+                    seeds=seeds)),
+         ("R", _arm(tmp_path, "R", base, seeds=seeds))],
+        paired=[("P", "R")])
+    (pair,) = out["paired"]
+    assert (pair["a"], pair["b"], pair["n"]) == ("P", "R", 5)
+    assert pair["seeds"] == sorted(seeds)
+    assert pair["delta"] == pytest.approx(statistics.fmean(d), abs=1e-9)
+    assert pair["se"] == pytest.approx(statistics.stdev(d) / math.sqrt(5),
+                                       abs=1e-9)
+    assert pair["verdict"] == "differ"
+    (unpaired,) = out["pairs"]
+    assert pair["unpaired"] == {k: unpaired[k]
+                                for k in ("delta", "se", "verdict")}
+    assert unpaired["verdict"] == "unresolved"
+    # and the other way: paired agree where unpaired agrees too
+    flat = chain_spread.summarize(
+        [("A", _arm(tmp_path, "A", base, seeds=seeds)),
+         ("B", _arm(tmp_path, "B", [b + 0.01 for b in base], seeds=seeds))],
+        paired=[("A", "B")])
+    assert flat["paired"][0]["verdict"] == "agree"
+    assert flat["paired"][0]["se"] == pytest.approx(0.0, abs=1e-9)
+    assert "paired" not in chain_spread.summarize(
+        [("A", f"{tmp_path}/A/seed*")])
+
+
+@pytest.mark.parametrize("case, match", [
+    ("seeds", r"seeds \[1, 2\] and \[1, 3\] do not match"),
+    ("no_seed", "no seed<N> directory"),
+    ("windows", "different val records"),
+    ("arm", "no arm Z"),
+])
+def test_a_pair_that_cannot_be_paired_is_refused(tmp_path, case, match):
+    a = _arm(tmp_path, "A", [3.0, 3.1], n=20, seeds=[1, 2])
+    b = _arm(tmp_path, "B", [3.0, 3.1], n=20,
+             seeds=[1, 3] if case == "seeds" else [1, 2])
+    if case == "no_seed":
+        b = str(_write_run(tmp_path / "B0" / "metrics.jsonl",
+                           _ciders(3.0, 20)).parent)
+    windows = {"B": (15, 20)} if case == "windows" else None
+    pair = ("A", "Z") if case == "arm" else ("A", "B")
+    with pytest.raises(ValueError, match=match):
+        chain_spread.summarize([("A", a), ("B", b)], windows=windows,
+                               paired=[pair])
+
+
+def test_the_seed_of_a_run_is_its_last_seed_directory():
+    assert chain_spread.run_seed("b/P_from_I/seed4") == 4
+    assert chain_spread.run_seed("seed1/x/seed123/metrics.jsonl") == 123
+    for path in ("b/seed4x/metrics.jsonl", "b/myseed4", "b/run"):
+        with pytest.raises(ValueError, match="no seed<N>"):
+            chain_spread.run_seed(path)
+
+
+def test_cli_windows_apply_to_the_arms_after_them(tmp_path, capsys):
+    """Two stages in one summary: each arm averages its own window, the
+    unpaired pairs stay within one window, and ``records`` names each
+    arm's."""
+    for name in ("WA", "WB"):
+        for seed, m in ((1, 2.9), (2, 3.0)):
+            _write_run(tmp_path / name / f"seed{seed}" / "metrics.jsonl",
+                       [0.0] * 14 + [m] * 6)
+    for name, m in (("XA", 2.50), ("XB", 2.40)):
+        for seed, e in ((1, 0.0), (2, 0.002)):
+            _write_run(tmp_path / name / f"seed{seed}" / "metrics.jsonl",
+                       [0.0] * 90 + [m + e] * 10)
+    out = tmp_path / "s.json"
+    assert chain_spread.main([
+        "summarize", "--window", "15-20",
+        "--arm", f"WA={tmp_path}/WA/seed*", "--arm", f"WB={tmp_path}/WB/seed*",
+        "--paired", "WA,WB", "--window", "91-100",
+        "--arm", f"XA={tmp_path}/XA/seed*", "--arm", f"XB={tmp_path}/XB/seed*",
+        "--paired", "XA,XB", "--out", str(out)]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    summary = json.loads(out.read_text())
+    assert summary["records"] == {"WA": [15, 20], "WB": [15, 20],
+                                  "XA": [91, 100], "XB": [91, 100]}
+    assert [(p["a"], p["b"]) for p in summary["pairs"]] == [
+        ("WA", "WB"), ("XA", "XB")]
+    assert summary["arms"]["WA"]["M"] == pytest.approx(2.95, abs=1e-12)
+    assert summary["arms"]["XA"]["M"] == pytest.approx(2.501, abs=1e-12)
+    assert "XA vs XB paired by seed (n 2): delta +0.1000, se 0.0000, " \
+           "differ; unpaired: delta +0.1000, se 0.0014, differ" in lines
+    assert "WA vs WB paired by seed (n 2): delta +0.0000, se 0.0000, " \
+           "agree; unpaired: delta +0.0000, se 0.0707, agree" in lines
+    with pytest.raises(SystemExit):
+        chain_spread.main(["summarize", "--window", "3-1", "--arm",
+                           f"WA={tmp_path}/WA/seed*"])
+
+
+def test_the_crossover18_summary_comes_out_unchanged(monkeypatch):
+    """The command in ``artifacts_torch/crossover18/README.md``, run from
+    the repository's root with the defaults of ``--window``, writes
+    exactly the committed ``summary.json``."""
+    monkeypatch.chdir(REPO)
+    b = "artifacts_torch/crossover18"
+    got = chain_spread.summarize(
+        [("R<-R", f"{b}/R_from_R/seed*"), ("P<-R", f"{b}/P_from_R/seed*"),
+         ("R<-P", f"{b}/R_from_P/seed*"), ("P<-P", f"{b}/P_from_P/seed*"),
+         ("R-chain", f"{b}/R_from_R/seed123,{b}/R_chain/seed*/cst"),
+         ("P-chain", f"{b}/P_from_P/seed123,{b}/P-chain/seed*/cst")],
+        [("R-WXE", f"{b}/beam5/ref_on_R-WXE/ref_on_R-WXE_beam5.json,"
+                   f"{b}/beam5/port_on_R-WXE/port_on_R-WXE_beam5.json"),
+         ("P-WXE", f"{b}/beam5/ref_on_P-WXE/ref_on_P-WXE_beam5.json,"
+                   f"{b}/beam5/port_on_P-WXE/port_on_P-WXE_beam5.json")])
+    assert got == json.loads((REPO / b / "summary.json").read_text())
+
+
+def test_the_committed_xe_wxe_crossover_summary_is_what_its_runs_give():
+    """``artifacts_torch/crossover19/summary.json``: each arm over its own
+    window (WXE's val records 15-20, XE's 91-100), every unpaired pair
+    within a window and every pair by seed recomputed from the committed
+    runs it names; every run has its manifest."""
+    bundle = REPO / "artifacts_torch" / "crossover19"
+    summary = json.loads((bundle / "summary.json").read_text())
+    assert summary["bound"] == chain_spread.BOUND
+    windows = {name: tuple(w) for name, w in summary["records"].items()}
+    assert set(windows.values()) == {(15, 20), (91, 100)}
+    stats = {}
+    for name, arm in summary["arms"].items():
+        runs = [str(REPO / r) for r in arm["runs"]]
+        assert all(Path(r).is_relative_to(bundle) for r in runs), name
+        assert all((Path(r) / "MANIFEST.json").is_file() for r in runs)
+        stats[name] = chain_spread.arm_stats(runs, windows[name])
+        assert stats[name]["n"] == arm["n"] >= 5, name
+        assert stats[name]["M"] == pytest.approx(arm["M"], abs=1e-12)
+        assert stats[name]["sd"] == pytest.approx(arm["sd"], abs=1e-12)
+    for pair in summary["pairs"]:
+        assert windows[pair["a"]] == windows[pair["b"]]
+        got = chain_spread.compare(stats[pair["a"]], stats[pair["b"]])
+        assert got["verdict"] == pair["verdict"], pair
+        assert got["delta"] == pytest.approx(pair["delta"], abs=1e-12)
+    assert len(summary["paired"]) >= 3
+    for pair in summary["paired"]:
+        got = chain_spread.compare_paired(stats[pair["a"]],
+                                          stats[pair["b"]])
+        assert (got["n"], got["seeds"], got["verdict"]) == (
+            pair["n"], pair["seeds"], pair["verdict"]), pair
+        assert got["delta"] == pytest.approx(pair["delta"], abs=1e-12)
+        assert got["se"] == pytest.approx(pair["se"], abs=1e-12)
